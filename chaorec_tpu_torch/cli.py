@@ -1,0 +1,115 @@
+"""Command line: the YAML grid search with the reference's log format.
+
+Counterpart of ``chaorec_tpu/cli.py``: the same flags (``config.parse_cli``),
+the same YAML grid (``Model_YAML/{Model}.yaml``), the same log file
+(``log/{Model}_{data_path}.log``, overwritten) and line formats, the same
+grid-progress and best-performance blocks, and ``--export_artifact`` of the
+best combo's best epoch into the serving path (``serve.export_artifact``).
+
+    python -m chaorec_tpu_torch.cli --Model CF_Diff --data_path baby
+
+The device is the first CUDA card when there is one, else the CPU (where
+the kernels' plain versions run). The JAX CLI's checkpoint grid cursor
+comes with checkpointing.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Dict, List, Optional
+
+import torch
+
+from chaorec_tpu_torch.config import Config, grid_combinations, load_yaml_config, parse_cli
+from chaorec_tpu_torch.data.loading import RecDataset, data_load
+from chaorec_tpu_torch.models import build_model
+from chaorec_tpu_torch.train.loop import Trainer, log_metrics
+
+LOG_FORMAT = "%(asctime)s %(levelname)s %(message)s"
+DATE_FORMAT = "%a %d %b %Y %H:%M:%S"
+
+
+def setup_logging(cfg: Config) -> None:
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    log_filename = os.path.join(cfg.log_dir, f"{cfg.Model}_{cfg.data_path}.log")
+    formatter = logging.Formatter(LOG_FORMAT, DATE_FORMAT)
+    logger = logging.getLogger()
+    logger.setLevel(logging.INFO)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    console = logging.StreamHandler()
+    console.setLevel(logging.INFO)
+    console.setFormatter(formatter)
+    file_handler = logging.FileHandler(log_filename, mode="w")
+    file_handler.setLevel(logging.INFO)
+    file_handler.setFormatter(formatter)
+    logger.addHandler(console)
+    logger.addHandler(file_handler)
+
+
+def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
+        dataset: Optional[RecDataset] = None,
+        device: torch.device | str | None = None) -> Dict:
+    """Full grid-search run; returns the best combo's best test metrics.
+
+    ``dataset`` is used instead of loading ``cfg.data_path`` from
+    ``cfg.data_root`` when given; ``yaml_cfg`` instead of the model's YAML."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    setup_logging(cfg)
+    logging.info("============Arguments==============")
+    for arg, value in cfg.as_flat_dict().items():
+        logging.info("%s: %s", arg, value)
+
+    if dataset is None:
+        dataset = data_load(cfg.data_path, cfg.data_root)
+    if yaml_cfg is None:
+        try:
+            yaml_cfg = load_yaml_config(cfg.Model)
+        except FileNotFoundError:
+            yaml_cfg = {"hyper_parameters": []}
+    combos = list(grid_combinations(yaml_cfg)) or [{}]
+
+    best_performance = None
+    best_params = None
+    best_metrics = None
+    best_export = None
+    for idx, hyper_param_dict in enumerate(combos):
+        logging.info("========={}/{}: Parameters:{}=========".format(
+            idx + 1, len(combos), hyper_param_dict))
+        combo_cfg = cfg.replace(**hyper_param_dict)
+        model = build_model(combo_cfg, dataset, device)
+        trainer = Trainer(model, dataset, combo_cfg)
+        current = trainer.run()
+        current_recall = current[20]["recall"] if 20 in current else (
+            current[max(current)]["recall"])
+        if best_performance is None or current_recall > best_performance:
+            best_performance = current_recall
+            best_params = dict(hyper_param_dict)
+            best_metrics = current
+            # the trainer snapshots the best epoch whenever export is asked for
+            best_export = (model, trainer.best_params_host, trainer.best_mstate_host)
+
+    if cfg.export_artifact:
+        from chaorec_tpu_torch.serve import export_artifact
+
+        model, params, mstate = best_export
+        logging.info("export_artifact: exporting best-epoch weights to %s",
+                     cfg.export_artifact)
+        export_artifact(model, {k: v.to(model.device) for k, v in params.items()},
+                        mstate, dataset, cfg.export_artifact, snapshot="best-epoch")
+
+    logging.info("Best performance: {:.5f}".format(best_performance))
+    logging.info("Best parameters: {}".format(best_params))
+    log_metrics("Best metrics:", best_metrics)
+    return best_metrics
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    run(parse_cli(argv))
+
+
+if __name__ == "__main__":
+    main()

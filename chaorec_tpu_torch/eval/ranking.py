@@ -1,0 +1,54 @@
+"""Full-catalog ranking of score-mode models: mask seen items, then top-k.
+
+Counterpart of ``chaorec_tpu/eval/ranking.py`` (``mask_and_topk`` and
+``mask_and_topk_dense``). A model scores a chunk of users over every item;
+each user's seen items are set to the model's ``mask_value`` (1e-6 in the
+reference's embedding models, -inf in the diffusion models); ``torch.topk``
+keeps the best ``topk``; ids become global (0-based item id + num_user),
+as in the reference's rank lists.
+
+``mask_rows`` is the one masking function of the port: the trainer's
+evaluation and ``serve.export_artifact`` both go through it. The JAX
+package's dense-mask variant exists because a scatter is slow on the TPU;
+on the card the scatter into one sentinel column is a single small kernel,
+so the port keeps one path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def mask_rows(scores: torch.Tensor, hist: torch.Tensor, value: float) -> torch.Tensor:
+    """``scores`` (n, I) with ``scores[r, hist[r, j]] = value``; entries of
+    ``hist`` equal to I (padding) are ignored: they index one extra
+    sentinel column, sliced off again."""
+    n, num_item = scores.shape
+    wide = torch.cat([scores, scores.new_empty((n, 1))], dim=1)
+    wide.scatter_(1, hist.to(torch.long), value)
+    return wide[:, :num_item]
+
+
+def mask_and_topk(scores: torch.Tensor, hist: torch.Tensor, topk: int, num_user: int,
+                  mask_value: float = 1e-6) -> torch.Tensor:
+    """(n, topk) int64 global item ids of the best unseen items per row of
+    ``scores`` (n, I); ``hist`` (n, H) holds 0-based seen items padded with I."""
+    _, idx = torch.topk(mask_rows(scores, hist, mask_value), topk, dim=1)
+    return idx + num_user
+
+
+@torch.no_grad()
+def rank_from_scores(model, params, history: torch.Tensor, topk: int = 50,
+                     user_chunk: int = 4096) -> torch.Tensor:
+    """(num_user, topk) global item ids for every user of a score-mode
+    model, ``user_chunk`` users at a time; ``history`` (U, H) is the padded
+    history table on the model's device."""
+    n = history.shape[0]
+    topk = min(topk, model.num_item)
+    outs = []
+    for start in range(0, n, user_chunk):
+        ids = torch.arange(start, min(start + user_chunk, n), device=history.device)
+        scores = model.score_users(params, ids)
+        outs.append(mask_and_topk(scores, history[ids], topk, model.num_user,
+                                  float(model.mask_value)))
+    return torch.cat(outs)

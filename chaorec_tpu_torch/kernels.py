@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so`` next to this file, at first use, for Hopper
-(``sm_90a``). The hash covers the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. The library is written to a
+(``sm_90a``). The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. The library is written to a
 temporary name and renamed into place, so processes that build at once do
 not read a half-written file.
 
@@ -58,9 +59,11 @@ def _nvcc() -> str:
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return Built(name, lib, 0.0, "")

@@ -1,4 +1,4 @@
-"""Gaussian diffusion over interaction rows: the inference half.
+"""Gaussian diffusion over interaction rows.
 
 Counterpart of ``chaorec_tpu/ops/diffusion.py``:
 
@@ -8,11 +8,18 @@ Counterpart of ``chaorec_tpu/ops/diffusion.py``:
 - ``q_sample`` forward noising and the deterministic reverse process
   ``p_sample`` (posterior mean of an x0-predicting denoiser), as a Python
   loop over t = steps-1 ... 0;
-- ``timestep_embedding``, the sinusoidal time embedding.
+- ``timestep_embedding``, the sinusoidal time embedding;
+- training: the SNR-weighted x0 loss (weight SNR(t-1) - SNR(t), 1 at t=0)
+  with importance-sampled timesteps driven by a circular per-step loss
+  history (``sample_timesteps``, ``update_lt_history``, ``training_loss``).
+  As in the JAX package, the history takes one aggregated loss per step
+  per batch instead of one per sample (a documented deviation from the
+  reference: it fills more slowly, with the same stationary distribution).
 
-The training half (``training_loss``, ``sample_timesteps``,
-``update_lt_history``) comes with the training port; ``init_lt_state``
-is here because a stateful model's state is part of what it serves with.
+Random draws come from an explicit ``torch.Generator``:
+``jax.random.choice(p=...)`` becomes ``torch.multinomial``. The two packages
+draw different numbers; ``loss_from_draws`` takes the draws as arguments so
+that a test can hand both packages the same ones.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 HISTORY_PER_TERM = 10  # loss-history length per diffusion step
+UNIFORM_PROB = 0.001  # share of the uniform law in the importance weights
 
 
 @dataclass(frozen=True)
@@ -108,6 +116,94 @@ def p_sample(sched: DiffusionSchedule,
         x_t = (sched.posterior_mean_coef1[t][:, None] * x0_hat
                + sched.posterior_mean_coef2[t][:, None] * x_t)
     return x_t
+
+
+def snr(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    acp = sched.alphas_cumprod[t]
+    return acp / (1.0 - acp)
+
+
+def timestep_probs(state: Tuple[torch.Tensor, torch.Tensor], steps: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(probs (steps,), ready): importance weights sqrt(E[loss^2]) per step,
+    mixed with ``UNIFORM_PROB`` of the uniform law, once every step has a
+    full loss history (``ready``, a bool tensor); uniform before that."""
+    lt_hist, lt_count = state
+    ready = torch.all(lt_count >= HISTORY_PER_TERM)
+    lt_sqrt = torch.sqrt(torch.mean(lt_hist ** 2, dim=1))
+    pt_all = lt_sqrt / torch.clamp(torch.sum(lt_sqrt), min=1e-12)
+    pt_all = pt_all * (1.0 - UNIFORM_PROB) + UNIFORM_PROB / steps
+    uniform = torch.full((steps,), 1.0 / steps, device=lt_hist.device)
+    return torch.where(ready, pt_all, uniform), ready
+
+
+def sample_timesteps(state: Tuple[torch.Tensor, torch.Tensor], batch_size: int,
+                     steps: int, generator: torch.Generator
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ts, pt): ``batch_size`` steps drawn from ``timestep_probs`` and the
+    importance correction pt = probs[ts] * steps (1 while not ready)."""
+    probs, ready = timestep_probs(state, steps)
+    ts = torch.multinomial(probs, batch_size, replacement=True, generator=generator)
+    pt = torch.where(ready, probs[ts] * steps, torch.ones_like(probs[ts]))
+    return ts, pt
+
+
+def update_lt_history(state: Tuple[torch.Tensor, torch.Tensor], ts: torch.Tensor,
+                      reloss: torch.Tensor, weights: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Push one weighted-mean loss per sampled step into its circular buffer."""
+    lt_hist, lt_count = state
+    steps = lt_hist.shape[0]
+    sums = torch.zeros(steps, device=reloss.device).index_add_(0, ts, reloss * weights)
+    cnts = torch.zeros(steps, device=reloss.device).index_add_(0, ts, weights)
+    present = cnts > 0
+    mean_loss = sums / torch.clamp(cnts, min=1.0)
+    shifted = torch.cat([lt_hist[:, 1:], mean_loss[:, None]], dim=1)
+    appended = lt_hist.clone()
+    rows = torch.arange(steps, device=lt_hist.device)
+    appended[rows, torch.clamp(lt_count, max=HISTORY_PER_TERM - 1).long()] = mean_loss
+    full = lt_count >= HISTORY_PER_TERM
+    new_hist = torch.where(present[:, None],
+                           torch.where(full[:, None], shifted, appended), lt_hist)
+    new_count = torch.where(present, torch.clamp(lt_count + 1, max=HISTORY_PER_TERM),
+                            lt_count)
+    return new_hist, new_count
+
+
+def loss_from_draws(sched: DiffusionSchedule,
+                    denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                    x_start: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor],
+                    weights: torch.Tensor, ts: torch.Tensor, pt: torch.Tensor,
+                    noise: torch.Tensor):
+    """``training_loss`` with its random draws (ts, pt, noise) given.
+    Returns (loss, new_state, (x_t, ts, out))."""
+    x_t = q_sample(sched, x_start, ts, noise) if sched.noise_scale != 0.0 else x_start
+    out = denoise_fn(x_t, ts)
+    mse = torch.mean((x_start - out) ** 2, dim=1)
+    if sched.noise_scale != 0.0:
+        # snr(ts - 1) is not read where ts == 0; clamping keeps the index valid
+        weight = snr(sched, torch.clamp(ts - 1, min=0)) - snr(sched, ts)
+        weight = torch.where(ts == 0, torch.ones_like(weight), weight)
+    else:
+        weight = torch.ones_like(mse)
+    reloss = weight * mse
+    new_state = update_lt_history(state, ts, reloss.detach(), weights)
+    loss = torch.sum((reloss / pt) * weights) / torch.clamp(torch.sum(weights), min=1.0)
+    return loss, new_state, (x_t, ts, out)
+
+
+def training_loss(sched: DiffusionSchedule,
+                  denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                  x_start: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor],
+                  weights: torch.Tensor, generator: torch.Generator):
+    """SNR-weighted x0 loss: (weighted-mean loss, new_state, aux).
+
+    ``denoise_fn(x_t, ts) -> x0_hat``; ``weights`` weigh the batch rows.
+    Draws the timesteps, then the noise, from ``generator``."""
+    ts, pt = sample_timesteps(state, x_start.shape[0], sched.steps, generator)
+    noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                        dtype=x_start.dtype)
+    return loss_from_draws(sched, denoise_fn, x_start, state, weights, ts, pt, noise)
 
 
 def init_lt_state(steps: int, device: torch.device | str = "cpu"

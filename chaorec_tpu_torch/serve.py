@@ -15,9 +15,8 @@ either package loads in the other:
   /recommend, /similar).
 
 Returned item ids are global (0-based item id + num_user), as in the
-reference's ranklists. Seen items are masked through one extra sentinel
-column: history rows are padded with ``num_item``, which indexes that
-column, and it is sliced off before top-k.
+reference's ranklists. Seen items are masked by ``eval/ranking.mask_rows``,
+the function the trainer's evaluation masks with too.
 """
 
 from __future__ import annotations
@@ -32,16 +31,9 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from chaorec_tpu_torch.eval.ranking import mask_rows as _mask_rows
+
 FORMAT_VERSION = 1
-
-
-def _mask_rows(scores: torch.Tensor, hist: torch.Tensor, value: float) -> torch.Tensor:
-    """``scores`` (n, I) with ``scores[r, hist[r, j]] = value``; entries of
-    ``hist`` equal to I (padding) are ignored."""
-    n, num_item = scores.shape
-    wide = torch.cat([scores, scores.new_empty((n, 1))], dim=1)
-    wide.scatter_(1, hist.to(torch.long), value)
-    return wide[:, :num_item]
 
 
 # ---------------------------------------------------------------------------
