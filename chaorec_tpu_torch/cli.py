@@ -6,15 +6,19 @@ the same YAML grid (``Model_YAML/{Model}.yaml``), the same log file
 grid-progress and best-performance blocks, and ``--export_artifact`` of the
 best combo's best epoch into the serving path (``serve.export_artifact``).
 
-    python -m chaorec_tpu_torch.cli --Model CF_Diff --data_path baby
+    python -m chaorec_tpu_torch.cli --Model FREEDOM --data_path sports [--device cpu]
 
-The device is the first CUDA card when there is one, else the CPU (where
-the kernels' plain versions run). The JAX CLI's checkpoint grid cursor
-comes with checkpointing.
+The run is on the first CUDA card unless ``--device cpu`` (or ``device=
+"cpu"`` in ``run``) asks for the CPU, where the kernels' plain versions
+run; without a card, a run that did not ask for the CPU raises before any
+work. The data is loaded with both modality feature tables, as the JAX
+CLI loads it. The JAX CLI's checkpoint grid cursor comes with
+checkpointing.
 """
 
 from __future__ import annotations
 
+import argparse
 import logging
 import os
 from typing import Dict, List, Optional
@@ -51,20 +55,20 @@ def setup_logging(cfg: Config) -> None:
 
 def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
         dataset: Optional[RecDataset] = None,
-        device: torch.device | str | None = None) -> Dict:
+        device: torch.device | str = "cuda") -> Dict:
     """Full grid-search run; returns the best combo's best test metrics.
 
     ``dataset`` is used instead of loading ``cfg.data_path`` from
     ``cfg.data_root`` when given; ``yaml_cfg`` instead of the model's YAML."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    torch.empty(0, device=device)  # a missing card raises here, before any work
     setup_logging(cfg)
     logging.info("============Arguments==============")
     for arg, value in cfg.as_flat_dict().items():
         logging.info("%s: %s", arg, value)
 
     if dataset is None:
-        dataset = data_load(cfg.data_path, cfg.data_root)
+        dataset = data_load(cfg.data_path, cfg.data_root, has_v=True, has_t=True)
     if yaml_cfg is None:
         try:
             yaml_cfg = load_yaml_config(cfg.Model)
@@ -108,7 +112,10 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    run(parse_cli(argv))
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda")
+    ns, rest = ap.parse_known_args(argv)
+    run(parse_cli(rest), device=ns.device)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+# Widths and seeds of the synthetic modality features (image, text).
+V_FEAT_DIM, V_FEAT_SEED = 4096, 1234
+T_FEAT_DIM, T_FEAT_SEED = 384, 5678
+
 # The reference's hard-coded dataset statistics: (num_user, num_item).
 DATASET_STATS: Dict[str, Tuple[int, int]] = {
     "netfilx": (14971, 7444),
@@ -176,20 +180,11 @@ def data_load(
             return np.load(p, allow_pickle=True).astype(np.float32)
         if not synthetic_features:
             return None
-        # Deterministic stand-ins when a dataset ships no modality
-        # features: a random projection of each item's interaction column,
-        # so modality similarity correlates with co-interaction. Not a
-        # parity target for paper numbers.
         logging.warning(
             "%s/%s missing - generating deterministic synthetic features "
             "(%d-dim interaction-projection stand-ins)", dataset, fname, dim
         )
-        rs = np.random.default_rng(seed)
-        proj = rs.standard_normal((num_user, dim)).astype(np.float32)
-        feats = np.zeros((num_item, dim), dtype=np.float32)
-        np.add.at(feats, edges[:, 1], proj[edges[:, 0]])
-        feats += 0.1 * rs.standard_normal((num_item, dim)).astype(np.float32)
-        return feats
+        return synthetic_item_features(edges, num_user, num_item, dim, seed)
 
     return RecDataset(
         name=dataset,
@@ -201,9 +196,26 @@ def data_load(
         val_pos=val_pos,
         test_users=test_users,
         test_pos=test_pos,
-        v_feat=_feat("v_feat.npy", has_v, 4096, 1234),
-        t_feat=_feat("t_feat.npy", has_t, 384, 5678),
+        v_feat=_feat("v_feat.npy", has_v, V_FEAT_DIM, V_FEAT_SEED),
+        t_feat=_feat("t_feat.npy", has_t, T_FEAT_DIM, T_FEAT_SEED),
     )
+
+
+def synthetic_item_features(edges: np.ndarray, num_user: int, num_item: int, dim: int,
+                            seed: int, edge_chunk: int = 65536) -> np.ndarray:
+    """(num_item, dim) float32 stand-ins for a modality feature table that
+    a dataset does not ship: each item is the sum of a random projection
+    of the users who interacted with it, plus noise, so feature similarity
+    follows co-interaction. Deterministic in ``seed``; not a parity target
+    for paper numbers. The edges are added in order, ``edge_chunk`` at a
+    time, so at most (edge_chunk, dim) gathered rows exist at once."""
+    rs = np.random.default_rng(seed)
+    proj = rs.standard_normal((num_user, dim)).astype(np.float32)
+    feats = np.zeros((num_item, dim), dtype=np.float32)
+    for s in range(0, edges.shape[0], edge_chunk):
+        np.add.at(feats, edges[s:s + edge_chunk, 1], proj[edges[s:s + edge_chunk, 0]])
+    feats += 0.1 * rs.standard_normal((num_item, dim)).astype(np.float32)
+    return feats
 
 
 def dense_interactions(ds: RecDataset, dtype=np.float32) -> np.ndarray:

@@ -1,11 +1,14 @@
-"""Full-catalog ranking of score-mode models: mask seen items, then top-k.
+"""Full-catalog ranking: score, mask seen items, then top-k.
 
-Counterpart of ``chaorec_tpu/eval/ranking.py`` (``mask_and_topk`` and
-``mask_and_topk_dense``). A model scores a chunk of users over every item;
-each user's seen items are set to the model's ``mask_value`` (1e-6 in the
-reference's embedding models, -inf in the diffusion models); ``torch.topk``
-keeps the best ``topk``; ids become global (0-based item id + num_user),
-as in the reference's rank lists.
+Counterpart of ``chaorec_tpu/eval/ranking.py`` (``gene_ranklist``,
+``mask_and_topk`` and ``mask_and_topk_dense``). Users are scored in chunks
+over every item: embedding models by their (user, item) tables, bf16
+inputs with float32 products and sums (``gene_ranklist``, as the JAX
+package scores them), score-mode models by ``score_users``
+(``rank_from_scores``). Each user's seen items are set to the model's
+``mask_value`` (1e-6 in the reference's embedding models, -inf in the
+diffusion models); ``torch.topk`` keeps the best ``topk``; ids become
+global (0-based item id + num_user), as in the reference's rank lists.
 
 ``mask_rows`` is the one masking function of the port: the trainer's
 evaluation and ``serve.export_artifact`` both go through it. The JAX
@@ -17,6 +20,8 @@ so the port keeps one path.
 from __future__ import annotations
 
 import torch
+
+from chaorec_tpu_torch.ops.mxu import bdot
 
 
 def mask_rows(scores: torch.Tensor, hist: torch.Tensor, value: float) -> torch.Tensor:
@@ -51,4 +56,21 @@ def rank_from_scores(model, params, history: torch.Tensor, topk: int = 50,
         scores = model.score_users(params, ids)
         outs.append(mask_and_topk(scores, history[ids], topk, model.num_user,
                                   float(model.mask_value)))
+    return torch.cat(outs)
+
+
+@torch.no_grad()
+def gene_ranklist(user_emb: torch.Tensor, item_emb: torch.Tensor, history: torch.Tensor,
+                  num_user: int, topk: int = 50, user_chunk: int = 4096) -> torch.Tensor:
+    """(U, topk) global item ids of every user's best unseen items, from
+    the embedding tables (U, D) and (I, D); seen items (``history``, the
+    padded (U, H) table on the same device) score 1e-6, as in the
+    reference (Model/BPR.py:81-83)."""
+    topk = min(topk, item_emb.shape[0])
+    items_t = item_emb.to(torch.bfloat16).t()
+    outs = []
+    for start in range(0, user_emb.shape[0], user_chunk):
+        end = min(start + user_chunk, user_emb.shape[0])
+        scores = bdot(user_emb[start:end].to(torch.bfloat16), items_t)
+        outs.append(mask_and_topk(scores, history[start:end], topk, num_user, 1e-6))
     return torch.cat(outs)

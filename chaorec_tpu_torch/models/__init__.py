@@ -26,7 +26,7 @@ def register_model(name: str):
 
 
 def build_model(cfg: Config, dataset: RecDataset,
-                device: torch.device | str = "cpu") -> RecModel:
+                device: torch.device | str = "cuda") -> RecModel:
     # Imported here so that the builders' modules register themselves.
     import chaorec_tpu_torch.models.builders  # noqa: F401
 

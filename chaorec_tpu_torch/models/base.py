@@ -13,6 +13,15 @@ its methods are functions of an explicit params dict of tensors:
 - ``loss_stateful(params, state, batch, generator) -> (loss, new_state)``
   for stateful models; the loss is differentiable in ``params``, the new
   state is not
+- ``loss(params, batch, generator) -> loss`` for the others
+- ``pre_epoch(params, epoch)``: work at the start of each epoch (graph
+  pruning, operator rebuilds), counted as training time
+- ``table_params``: names of large tables whose gradient is nonzero on the
+  batch's rows only (trainable raw feature tables). The trainer gathers
+  ``table_rows(batch)`` of each, differentiates
+  ``loss_tables(dense_params, gathered_rows, batch, generator)`` (the same
+  math as ``loss``) and steps each table with the row-sparse Adam
+  (``ops/indexed_adam.py``), so no dense table gradient exists
 
 ``trainer_mode`` names the batches the trainer feeds: "user_rows" for
 models that train on whole interaction rows of shuffled users (the
@@ -36,12 +45,16 @@ Params = Dict[str, torch.Tensor]
 
 @dataclass(frozen=True)
 class Batch:
-    """One training batch of a "user_rows" model: user ids (B,) and their
-    row weights (B,), by which every loss is a weighted mean. The JAX
-    package's positives, negatives and batch index wait for the BPR models."""
+    """One training batch: user ids (B,) and their row weights (B,), by
+    which every loss is a weighted mean; for "bpr" models also each row's
+    positive and negative item (B,), 0-based. ``index`` is the batch's
+    position in its epoch. A "user_rows" batch has no items."""
 
     users: torch.Tensor
     weights: torch.Tensor
+    pos_items: Optional[torch.Tensor] = None
+    neg_items: Optional[torch.Tensor] = None
+    index: int = 0
 
 
 class RecModel:
@@ -72,4 +85,22 @@ class RecModel:
     def loss_stateful(self, params: Params, state, batch: Batch,
                       generator: torch.Generator) -> Tuple[torch.Tensor, object]:
         """(loss, new_state) of a stateful model on one batch."""
+        raise NotImplementedError
+
+    def loss(self, params: Params, batch: Batch, generator: torch.Generator) -> torch.Tensor:
+        raise NotImplementedError
+
+    def pre_epoch(self, params: Params, epoch: int) -> None:
+        return None
+
+    table_params: Tuple[str, ...] = ()
+
+    def table_rows(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """{table name: (B',) rows of it that this batch's loss reads}."""
+        raise NotImplementedError
+
+    def loss_tables(self, dense_params: Params, table_rows_vals: Dict[str, torch.Tensor],
+                    batch: Batch, generator: torch.Generator) -> torch.Tensor:
+        """``loss`` with each table's rows given already gathered
+        (``table_rows_vals[name] = params[name][table_rows(batch)[name]]``)."""
         raise NotImplementedError

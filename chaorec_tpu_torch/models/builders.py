@@ -6,12 +6,32 @@ constructor arguments of its JAX counterpart.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from chaorec_tpu_torch.config import Config
 from chaorec_tpu_torch.data.loading import RecDataset, dense_interactions
+from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph, build_norm_adj
 from chaorec_tpu_torch.models import register_model
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
+from chaorec_tpu_torch.models.freedom import FREEDOM
+
+
+def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device) -> BipartiteGraph:
+    """The normalized user-item graph: dense while U * I is at most
+    ``cfg.dense_prop_threshold``, R in ``cfg.graph_compute_dtype``."""
+    return build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device,
+                          dense_threshold=cfg.dense_prop_threshold,
+                          compute_dtype=cfg.graph_compute_dtype)
+
+
+def _feats(ds: RecDataset, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    if ds.v_feat is None or ds.t_feat is None:
+        raise ValueError(f"dataset {ds.name} has no modality features; load with "
+                         "has_v/has_t or enable synthetic_features")
+    return (torch.from_numpy(ds.v_feat).to(device, torch.float32),
+            torch.from_numpy(ds.t_feat).to(device, torch.float32))
 
 
 @register_model("CF_Diff")
@@ -21,4 +41,18 @@ def _cf_diff(cfg: Config, ds: RecDataset, device: torch.device) -> CF_Diff:
         ds.num_user, ds.num_item,
         torch.from_numpy(dense_interactions(ds)).to(device),
         cfg.noise_scale, cfg.noise_min, cfg.noise_max, cfg.steps,
+    )
+
+
+@register_model("FREEDOM")
+def _freedom(cfg: Config, ds: RecDataset, device: torch.device) -> FREEDOM:
+    # main.py:287-289: FREEDOM(..., dim_E, feature_embedding, reg_weight,
+    #   dropout, n_layers, mm_layers, ii_topk, *lambda_coeff*, device): the
+    # reference passes lambda_coeff into the mm_image_weight slot.
+    v, t = _feats(ds, device)
+    return FREEDOM(
+        ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t,
+        cfg.dim_E, cfg.feature_embed, cfg.reg_weight, cfg.dropout,
+        cfg.n_layers, cfg.mm_layers, cfg.ii_topk,
+        mm_image_weight=cfg.lambda_coeff,
     )

@@ -4,7 +4,8 @@
 ``np.asarray`` on each leaf) or a state tuple such as CF_Diff's
 ``(lt_hist, lt_count)`` into tensors on ``device``; ``to_numpy`` goes back.
 A model initialised in one package then computes the same thing in both.
-Dicts, tuples and lists are walked; their structure is kept.
+Dicts, tuples and lists are walked; their structure is kept. bf16 leaves
+(``--relaxed_precision bf16`` tables) keep their dtype and bits.
 """
 
 from __future__ import annotations
@@ -23,7 +24,12 @@ def from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
     if tree is None:
         return None
     # np.array copies, so the tensor owns its memory and is writable
-    return torch.from_numpy(np.array(tree)).to(device)
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        # JAX's bf16 arrays (ml_dtypes) are foreign to torch.from_numpy; the
+        # bits go across as uint16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def to_numpy(tree: Any) -> Any:

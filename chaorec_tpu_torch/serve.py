@@ -110,10 +110,11 @@ def _pairs(idx: torch.Tensor, vals: torch.Tensor, offset: int) -> List[List[Tupl
 
 class Recommender:
     """Serving handle over an exported artifact, with its tables on
-    ``device``. Each query enters ``torch.inference_mode`` itself, since
-    the HTTP handler calls it from its own threads."""
+    ``device`` (the card unless the caller asks for the CPU). Each query
+    enters ``torch.inference_mode`` itself, since the HTTP handler calls it
+    from its own threads."""
 
-    def __init__(self, data: Dict[str, np.ndarray], device: torch.device | str = "cpu"):
+    def __init__(self, data: Dict[str, np.ndarray], device: torch.device | str = "cuda"):
         fv = int(data["format_version"])
         if fv > FORMAT_VERSION:
             raise ValueError(f"artifact format {fv} newer than supported")
@@ -135,7 +136,7 @@ class Recommender:
             raise ValueError(f"unknown artifact kind {self.kind!r}")
 
     @classmethod
-    def load(cls, path: str, device: torch.device | str = "cpu") -> "Recommender":
+    def load(cls, path: str, device: torch.device | str = "cuda") -> "Recommender":
         with np.load(path, allow_pickle=False) as z:
             return cls({k: z[k] for k in z.files}, device)
 
@@ -298,7 +299,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--artifact", required=True)
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     rec = Recommender.load(args.artifact, args.device)

@@ -1,13 +1,31 @@
 """Training runtime: epochs of Adam steps, per-epoch evaluation, early stopping.
 
-Counterpart of ``chaorec_tpu/train/loop.py`` for stateful "user_rows" models
-(CF_Diff): each epoch shuffles every user once, takes one Adam step per
-batch on the model's ``loss_stateful``, carries the model state from batch
-to batch, then ranks the full catalog and computes the metrics.
+Counterpart of ``chaorec_tpu/train/loop.py`` for two kinds of model:
+
+- stateful "user_rows" models (CF_Diff): each epoch shuffles every user
+  once and takes one Adam step per batch on ``loss_stateful``, carrying
+  the model state from batch to batch;
+- "bpr" models: each epoch shuffles the train edges; every batch of
+  (user, positive) pairs gets one negative per row from outside the
+  user's history, drawn on the device. Models with ``table_params``
+  (FREEDOM's trainable feature tables) take the row-sparse table step: the
+  batch's rows of each table are gathered as leaf tensors, one backward
+  gives the dense gradients and the rows' gradients, Adam steps the dense
+  params, and ``ops/indexed_adam.table_adam_update`` steps each table
+  with a step count shared by the tables (on the card, the
+  ``csrc/row_adam.cu`` kernel, in place).
+
+Each epoch calls the model's ``pre_epoch`` first (graph pruning, operator
+rebuilds), counted as training time; then ranks the full catalog
+(``gene_ranklist`` for embedding models, ``rank_from_scores`` for
+score-mode ones) and computes the metrics.
 
 Behavioral parity with the JAX trainer, and through it the reference:
 - epoch loss = sum of the batch losses, each a weighted mean over its batch;
-- Adam with torch defaults (betas (0.9, 0.999), eps 1e-8);
+- Adam with torch defaults (betas (0.9, 0.999), eps 1e-8), for the tables
+  too;
+- ``--relaxed_precision bf16`` stores the tables and their moments in bf16
+  (the math stays float32);
 - early stopping on **test** Recall@max(topk) with ``cfg.patience``; an
   equal score counts as an improvement;
 - the same log lines: ``Epoch {n}, Loss: {x:.5f}``, the Validation/Test
@@ -15,18 +33,20 @@ Behavioral parity with the JAX trainer, and through it the reference:
 - best metrics = test metrics at the best epoch.
 
 What the port measures in ``epoch_time_s`` differs: the "train-dispatch"
-slot is the whole training epoch up to the host's read of its loss (the
-device has finished by then), and "eval+sync" the ranking and metrics.
+slot is the whole training epoch (``pre_epoch`` included) up to the host's
+read of its loss (the device has finished by then), and "eval+sync" the
+ranking and metrics.
 
 Not ported: the JAX trainer's chunked epoch dispatch, its serialize guard,
 its compile sharing through injected hyperparameters and its one-epoch-deep
-eval pipeline exist for the TPU and its remote link. The BPR, row-sparse
-table and rebuild-gated branches, checkpointing, mesh training and the
-profiler hook come with the models and slices that need them.
+eval pipeline exist for the TPU and its remote link. The rebuild-gated
+branch, checkpointing, mesh training and the profiler hook come with the
+models and slices that need them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Dict, Optional
@@ -35,10 +55,12 @@ import torch
 
 from chaorec_tpu_torch.config import Config
 from chaorec_tpu_torch.data.loading import RecDataset
-from chaorec_tpu_torch.data.sampling import make_epoch_batches
+from chaorec_tpu_torch.data.sampling import (make_edge_batches, make_epoch_batches,
+                                             sample_negatives)
 from chaorec_tpu_torch.eval.metrics import gene_metrics_pair, split_tensors
-from chaorec_tpu_torch.eval.ranking import rank_from_scores
-from chaorec_tpu_torch.models.base import Params, RecModel
+from chaorec_tpu_torch.eval.ranking import gene_ranklist, rank_from_scores
+from chaorec_tpu_torch.models.base import Batch, Params, RecModel
+from chaorec_tpu_torch.ops.indexed_adam import init_table_state, table_adam_update
 
 ADAM_BETAS = (0.9, 0.999)  # torch.optim.Adam defaults, as the reference uses
 ADAM_EPS = 1e-8
@@ -84,55 +106,124 @@ def _log_metric_tables(val_metrics, test_metrics) -> None:
     log_metrics("Test Metrics:", test_metrics)
 
 
+def apply_relaxed_precision(model: RecModel, params: Params, cfg: Config) -> Params:
+    """``--relaxed_precision bf16``: the model's tables are stored in bf16,
+    and their Adam moments with them (``init_table_state`` follows the
+    table's dtype); the per-step math stays float32."""
+    if cfg.relaxed_precision == "bf16" and model.table_params:
+        for n in model.table_params:
+            params[n] = params[n].to(torch.bfloat16)
+        logging.info("relaxed_precision=bf16: tables %s stored bf16", list(model.table_params))
+    return params
+
+
 class Trainer:
-    """The standard trainer of a stateful "user_rows" model on its device."""
+    """The standard trainer of a model on its device: stateful "user_rows"
+    models and stateless "bpr" models (with or without row-sparse tables)."""
 
     def __init__(self, model: RecModel, dataset: RecDataset, cfg: Config):
-        if model.trainer_mode != "user_rows" or not model.stateful:
+        self.user_rows = model.trainer_mode == "user_rows" and model.stateful
+        if not self.user_rows and (model.trainer_mode != "bpr" or model.stateful):
             raise NotImplementedError(
-                f"{model.name}: only stateful user_rows models are ported; "
-                f"trainer_mode {model.trainer_mode!r} comes with its models")
+                f"{model.name}: trainer_mode {model.trainer_mode!r} with stateful="
+                f"{model.stateful} is not ported; it comes with its models")
         self.model = model
         self.dataset = dataset
         self.cfg = cfg
         self.device = model.device
         # One generator drives everything random in training: shuffles,
-        # timesteps, noise and dropout.
+        # negatives, timesteps, noise and dropout.
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         self.model_state = model.init_state(self.device)
         self.history = torch.from_numpy(dataset.history.values).to(self.device)
+        self.edges = torch.from_numpy(dataset.train_edges).to(self.device, torch.int64)
         self.val_split = split_tensors(dataset, "val", self.device)
         self.test_split = split_tensors(dataset, "test", self.device)
+        # row-sparse table optimizer state: {table: (m, v)} and the shared
+        # step count, an int32 on the device (read there by the kernel)
+        self.table_state = {}
+        self.table_count = torch.zeros((), dtype=torch.int32, device=self.device)
         # the best epoch's weights, kept for --export_artifact
         self.best_params_host: Optional[Params] = None
         self.best_mstate_host = None
 
     def init_params(self) -> Params:
+        """The model's initial params (the tables in bf16 under
+        ``--relaxed_precision bf16``); every param but the tables is a
+        leaf that requires grad."""
         gen = torch.Generator(self.device).manual_seed(self.cfg.seed + 1)
-        return {k: v.requires_grad_() for k, v in self.model.init_params(gen).items()}
+        params = apply_relaxed_precision(self.model, self.model.init_params(gen), self.cfg)
+        tables = set(self.model.table_params)
+        return {k: v if k in tables else v.requires_grad_() for k, v in params.items()}
 
     def make_optimizer(self, params: Params) -> torch.optim.Adam:
-        return torch.optim.Adam(params.values(), lr=float(self.cfg.learning_rate),
-                                betas=ADAM_BETAS, eps=ADAM_EPS)
+        """Adam over the dense params; resets the tables' optimizer state."""
+        tables = self.model.table_params
+        self.table_state = {n: init_table_state(params[n]) for n in tables}
+        self.table_count.zero_()
+        return torch.optim.Adam([v for k, v in params.items() if k not in tables],
+                                lr=float(self.cfg.learning_rate), betas=ADAM_BETAS,
+                                eps=ADAM_EPS)
 
-    def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:
-        """One pass over every user; returns the sum of the batch losses."""
-        losses = []
-        for batch in make_epoch_batches(self.generator, self.dataset.num_user,
-                                        int(self.cfg.batch_size)):
-            optimizer.zero_grad(set_to_none=True)
-            loss, self.model_state = self.model.loss_stateful(
-                params, self.model_state, batch, self.generator)
+    def train_step(self, params: Params, optimizer: torch.optim.Optimizer,
+                   batch: Batch) -> torch.Tensor:
+        """One Adam step of a "bpr" model on a batch with its negatives;
+        returns the loss. Updates ``params`` (the tables by replacement on
+        the CPU, in place on the card)."""
+        optimizer.zero_grad(set_to_none=True)
+        names = self.model.table_params
+        if not names:
+            loss = self.model.loss(params, batch, self.generator)
             loss.backward()
             optimizer.step()
-            losses.append(loss.detach())
+            return loss
+        dense = {k: v for k, v in params.items() if k not in names}
+        rows = self.model.table_rows(batch)
+        gathered = {n: params[n][rows[n]].requires_grad_() for n in names}
+        loss = self.model.loss_tables(dense, gathered, batch, self.generator)
+        loss.backward()
+        optimizer.step()
+        self.table_count += 1
+        lr = float(self.cfg.learning_rate)
+        for n in names:
+            params[n], self.table_state[n] = table_adam_update(
+                params[n], self.table_state[n], rows[n], gathered[n].grad,
+                self.table_count, lr, ADAM_BETAS[0], ADAM_BETAS[1], ADAM_EPS)
+        return loss
+
+    def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:
+        """One pass over every user (user_rows) or every edge (bpr); returns
+        the sum of the batch losses."""
+        losses = []
+        bs = int(self.cfg.batch_size)
+        if self.user_rows:
+            for batch in make_epoch_batches(self.generator, self.dataset.num_user, bs):
+                optimizer.zero_grad(set_to_none=True)
+                loss, self.model_state = self.model.loss_stateful(
+                    params, self.model_state, batch, self.generator)
+                loss.backward()
+                optimizer.step()
+                losses.append(loss.detach())
+        else:
+            for batch in make_edge_batches(self.generator, self.edges, bs):
+                neg = sample_negatives(self.generator, batch.users, self.history,
+                                       self.model.num_item, int(self.cfg.neg_candidates))
+                loss = self.train_step(params, optimizer,
+                                       dataclasses.replace(batch, neg_items=neg))
+                losses.append(loss.detach())
         return float(torch.stack(losses).sum())  # the epoch's one host sync
 
+    @torch.no_grad()
     def evaluate(self, params: Params):
         """(val, test, rank_list): full-catalog top-``rank_topk`` ranking with
         seen items masked, then the metrics of both splits."""
-        rank_list = rank_from_scores(self.model, params, self.history,
-                                     self.cfg.rank_topk, self.cfg.eval_user_chunk)
+        if self.model.rank_mode == "embeddings":
+            user_emb, item_emb = self.model.embeddings(params)
+            rank_list = gene_ranklist(user_emb, item_emb, self.history, self.model.num_user,
+                                      self.cfg.rank_topk, self.cfg.eval_user_chunk)
+        else:
+            rank_list = rank_from_scores(self.model, params, self.history,
+                                         self.cfg.rank_topk, self.cfg.eval_user_chunk)
         val, test = gene_metrics_pair(rank_list, list(self.cfg.topk),
                                       self.val_split, self.test_split)
         return val, test, rank_list
@@ -144,6 +235,7 @@ class Trainer:
         early_stopping = EarlyStopping(patience=cfg.patience, verbose=True)
         for epoch in range(cfg.num_epoch):
             t0 = time.perf_counter()
+            self.model.pre_epoch(params, epoch)
             loss = self.train_epoch(params, optimizer)
             t1 = time.perf_counter()
             val_metrics, test_metrics, _ = self.evaluate(params)
@@ -159,7 +251,8 @@ class Trainer:
                 # host copies: the optimizer updates params in place
                 self.best_params_host = {k: v.detach().cpu().clone()
                                          for k, v in params.items()}
-                self.best_mstate_host = tuple(t.cpu().clone() for t in self.model_state)
+                if self.model_state is not None:
+                    self.best_mstate_host = tuple(t.cpu().clone() for t in self.model_state)
             if early_stopping.early_stop:
                 print("Early stopping")
                 break

@@ -1,50 +1,83 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``chaorec_tpu_torch``) on one CUDA card.
 
-Drives the port's two paths once, as a user would, with CF_Diff at its
-published width (1034 tokens, d_model 16, 4 heads, 2 cross-attention
-rounds; the first combo of Model_YAML/CF_Diff.yaml) on a dataset of baby's
-size (12351 users x 4794 items), random weights from ``--seed``: the
-serving path (export, serve) and the training path (the CLI's grid run:
-epochs of Adam steps, evaluation, early stopping, export of the best
-epoch). Phases, each printing its own lines:
+Drives the port's three paths once, as a user would, each at its model's
+published width with random weights from ``--seed``:
+
+- CF_Diff (1034 tokens, d_model 16, 4 heads, 2 cross-attention rounds; the
+  first combo of Model_YAML/CF_Diff.yaml) on a dataset of baby's size
+  (12351 users x 4794 items): the serving path (export, serve) and the
+  training path (the CLI's grid run: epochs of Adam steps, evaluation,
+  early stopping, export of the best epoch);
+- FREEDOM (dim 64, 2 layers, 1 modal layer, ii_topk 10, dropout 0.1; the
+  one combo of Model_YAML/FREEDOM.yaml) on a dataset of sports' size
+  (28940 users x 15207 items, 4096- and 384-wide item features): the
+  CLI's grid run with BPR batches of 1024 edges, whose trainable feature
+  tables are stepped by the row-sparse Adam kernel, then the export and
+  serving of its embeddings.
+
+Phases, each printing its own lines:
 
 1. device   the card's name and power limit (nvidia-smi); fails without CUDA
-2. build    compile csrc/fused_mha.cu and csrc/fused_mha_bwd.cu with nvcc
-            (sm_90a), both at once, and print ptxas's registers and spills
+2. build    compile csrc/fused_mha.cu, csrc/fused_mha_bwd.cu and
+            csrc/row_adam.cu with nvcc (sm_90a), all at once, and print
+            ptxas's registers and spills
 3. kernel   fused_mha at keep 1.0 and 0.5 against mha_reference under the
             same mask; its backward against autograd of mha_reference;
             both timed against the plain version at the export chunk and
             the training batch shapes, and held to it at both (the
-            backward at the training batch, slice by slice)
-4. slice    export_artifact over every user (the kernel launch counts are
-            reset just before and read just after), then the kernel path's
-            scores against the plain path's and against the CPU
+            backward at the training batch, slice by slice);
+            scaled_dot_product_attention timed at the export chunk;
+            fused_row_adam (through table_adam_update) against
+            row_adam_update at (15207, 4096) and (15207, 384), fp32 and
+            bf16 storage, three steps with duplicates, sentinels, tile
+            edges, rows 0 and N-1, B 2048 and 1; timed against its plain
+            version and against zeros + index_add_ + a fused torch Adam
+4. slice    CF_Diff export_artifact over every user (the kernel launch
+            counts are reset just before and read just after), then the
+            kernel path's scores against the plain path's and the CPU's
 5. serve    Recommender + serve_http on 127.0.0.1: answers equal the
             artifact and hold no seen item; an embeddings artifact answers
             alike on the card and on the CPU
-6. profile  device time by kernel over one export chunk
-7. train    cli.run: 2 epochs at batch 1024 with --export_artifact (counts
-            reset just before, read just after); per-epoch times and peak
-            memory; the exported best epoch goes through phase 5's checks
-8. step     one training step at 8 users, kernel path against plain path
-            with every dropout mask equal: loss and every gradient
-9. profile  device time by kernel over one training step at 1024 users
+6. profile  device time by kernel over one CF_Diff export chunk
+7. train    CF_Diff cli.run: 2 epochs at batch 1024 with --export_artifact
+            (counts reset just before, read just after); per-epoch times
+            and peak memory; the exported best epoch goes through phase 5
+8. step     one CF_Diff training step at 8 users, kernel path against plain
+            path with every dropout mask equal: loss and every gradient
+9. profile  device time by kernel over one CF_Diff training step
+10. freedom FREEDOM cli.run: 2 epochs with --export_artifact (counts reset
+            just before, read just after: one fused_row_adam launch per
+            table per step); per epoch the loss, pre_epoch (pruning and
+            row operators), training and eval times and the peak memory;
+            the exported embeddings served over HTTP equal their tables'
+            top-k and hold no seen item
+11. fstep   one FREEDOM training step, kernel path against plain path
+            (row_adam_update) on the same batch and negatives: the loss,
+            the tables, their moments and the dense params
+12. profile device time by kernel over one FREEDOM training step and one
+            pre_epoch; the time of the per-epoch products R R^T and R^T R
+13. bf16    one FREEDOM epoch with --relaxed_precision bf16 (the tables
+            and their moments stored in bf16, through the same kernel)
 
-Then one JSON line about the kernels, and last the result line
-``{"ok": true, "device": {...}}``. Any failed check raises and the script
-exits non-zero without the result line.
+Then one JSON line about the kernels (each with its time, its plain
+version's, its bound and, where one PyTorch call computes the same
+function, that call's time), and last the result line ``{"ok": true,
+"device": {...}}``. Any failed check raises and the script exits non-zero
+without the result line.
 
     python3 chip_smoke.py [--seed 0] [--data_root DIR] [--out_dir log]
 
-With ``--data_root`` pointing at a directory holding ``baby/train.npy``
-etc., the real dataset is used instead of the synthetic one.
+With ``--data_root`` pointing at a directory holding ``baby/train.npy`` and
+``sports/train.npy`` etc., the real datasets are used instead of the
+synthetic ones.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import logging
 import math
@@ -65,7 +98,11 @@ import torch
 MODEL_CONFIG = dict(Model="CF_Diff", learning_rate=0.001, noise_scale=0.1,
                     noise_min=0.0005, noise_max=0.005, steps=10)
 DATASET = "baby"
-KERNELS = ("fused_mha", "fused_mha_bwd")
+# Model_YAML/FREEDOM.yaml's one combo is what cli.run reads; the rest of
+# the configuration is the Config defaults (dim_E and feature_embed 64,
+# batch 1024, graph_compute_dtype bfloat16), as bench.py's FREEDOM leg.
+FREEDOM_DATASET, FREEDOM_EPOCHS = "sports", 2
+KERNELS = ("fused_mha", "fused_mha_bwd", "row_adam")
 # fp32 attention over 1034 keys with inputs ~N(0, 1): the kernel's online
 # softmax sums in another order than the reference's; 1e-5 is expected,
 # with or without dropout (both draw the same Philox mask).
@@ -82,6 +119,17 @@ TOPK_AGREE_MIN = 0.98  # mean top-k overlap of two rankings of the same scores
 # largest entry plus 1e-6 of the whole gradient's largest (the SNR weights
 # make entries span ~10 decades; as tests/test_torch_cf_diff.py holds it).
 STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-5, 1e-4, 1e-6
+# Row-sparse Adam: the JAX package's own tolerances for it
+# (tests/test_pallas_row_adam.py), fp32 math in another order (the kernel
+# contracts b1 m + (1 - b1) g into one fma; duplicate rows' gradients are
+# summed by atomics in any order). bf16 storage: one bf16 ulp of the stored
+# value on top of that, since a moment that nearly cancels (b1 m close to
+# -(1 - b1) g) is small enough for the fp32 difference to exceed its ulp.
+ROW_P_TOL, ROW_V_TOL = dict(rtol=2e-5, atol=2e-7), dict(rtol=2e-5, atol=1e-9)
+ROW_ADAM_SHAPES = (("v_feat", (15207, 4096)), ("t_feat", (15207, 384)))
+ROW_ADAM_LR = 1e-3  # FREEDOM's learning rate
+# The card's published peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
 BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
 TRAIN_EPOCHS, TRAIN_BATCH = 2, 1024
@@ -107,6 +155,160 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of the operations over the peak rate for their type and
+    the bytes (each input read once, each output written once) over the
+    memory rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attn_bound(shape, backward: bool = False):
+    """Bound of fp32 attention at (B, H, Lq, Lk, dh): the forward's q.k and
+    p.v take 2 dh flops each per score and move q, k, v and out; the
+    backward's score recompute, dv, dp, dq and dk take 2 dh each and move
+    q, k, v, out, dout, lse, dq, dk and dv. Dropout draws are not counted."""
+    b, h, lq, lk, dh = shape
+    scores, nq, nk = b * h * lq * lk, b * h * lq * dh, b * h * lk * dh
+    if backward:
+        return bound_ms(10 * dh * scores, 4 * (3 * nq + 2 * nk + b * h * lq + nq + 2 * nk))
+    return bound_ms(4 * dh * scores, 4 * (2 * nq + 2 * nk))
+
+
+def sdpa_ms(q, k, v):
+    """(ms, output) of torch's scaled_dot_product_attention on the same
+    inputs, in one call. A yardstick only: the port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = sdpa(q, k, v)
+    return cuda_ms(lambda: sdpa(q, k, v), 5), out
+
+
+def tol_share(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
+              bf16_ulps: int = 0, where: bool = False):
+    """Largest |got - want| / (atol + rtol |want| + ``bf16_ulps`` bf16 ulps
+    of the larger of the two): at most 1 passes. With ``where``, also the
+    flat index of that entry."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    share = ((got - want).abs() / (atol + rtol * want.abs() + bf16_ulps * ulp)).view(-1)
+    at = int(share.argmax())
+    return (share[at].item(), at) if where else share[at].item()
+
+
+def row_adam_rows(gen, n: int, b: int, device) -> torch.Tensor:
+    """``b`` raw int64 rows of an (n, .) table: rows 0-63 and the last 64
+    (so every tile edge at their heights, and rows 0 and n-1), a few of
+    them twice, and the rest uniform (duplicates by chance)."""
+    if b == 1:
+        return torch.tensor([n - 1], device=device)
+    ends = torch.cat([torch.arange(64, device=device), torch.arange(n - 64, n, device=device)])
+    dups = ends[::16]
+    rest = torch.randint(0, n, (b - ends.numel() - dups.numel(),), generator=gen, device=device)
+    return torch.cat([ends, dups, rest])[torch.randperm(b, generator=gen, device=device)]
+
+
+def row_adam_phase(gen, device) -> dict:
+    """fused_row_adam (through table_adam_update, as the trainer calls it)
+    against row_adam_update, each of three steps from equal tables and
+    moments, then its times at the main path's shapes.
+    Returns per table {max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}."""
+    from chaorec_tpu_torch.ops.indexed_adam import (init_table_state, row_adam_update,
+                                                    table_adam_update)
+    from chaorec_tpu_torch.ops.row_adam import (fused_row_adam, prepare_sorted_rows,
+                                                row_adam_reference)
+
+    results = {}
+    for name, (n, d) in ROW_ADAM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            p0 = torch.randn((n, d), generator=gen, device=device).to(dtype)
+            kp, ks = p0.clone(), init_table_state(p0)
+            pp, ps = p0.clone(), init_table_state(p0)
+            worst, err = (0.0, ""), 0.0
+            for step, b in enumerate((2048, 1, 2048), 1):
+                rows = row_adam_rows(gen, n, b, device)
+                g = torch.randn((b, d), generator=gen, device=device)
+                count = torch.tensor(step, dtype=torch.int32, device=device)
+                before = fused_row_adam.launches
+                kp, ks = table_adam_update(kp, ks, rows, g, count, ROW_ADAM_LR)
+                torch.cuda.synchronize()
+                check(fused_row_adam.launches == before + 1, "table_adam_update did not launch")
+                pp, ps = row_adam_update(pp, ps, rows, g, count, ROW_ADAM_LR)
+                for t, got, want, tol in (("p", kp, pp, ROW_P_TOL), ("m", ks.m, ps.m, ROW_P_TOL),
+                                          ("v", ks.v, ps.v, ROW_V_TOL)):
+                    share, at = tol_share(got, want, **tol, bf16_ulps=int(dtype == torch.bfloat16),
+                                          where=True)
+                    if share > worst[0]:
+                        worst = (share, f"{t} at step {step}, entry {at}: {got.view(-1)[at].item()!r}"
+                                        f" vs {want.view(-1)[at].item()!r}")
+                    err = max(err, (got.float() - want.float()).abs().max().item())
+                    # each step starts from equal tables: a value rounded to the
+                    # other neighbour would otherwise grow under cancellation
+                    got.copy_(want)
+            unit = " + 1 bf16 ulp" if dtype == torch.bfloat16 else ""
+            say("kernel", f"fused_row_adam {name} ({n}, {d}) {str(dtype)[6:]}: 3 steps (B 2048, "
+                f"1, 2048; duplicates, sentinels, rows 0..63 and N-64..N-1) vs row_adam_update: "
+                f"max abs err {err:.3e}, worst entry at {worst[0]:.3f} of its tolerance (rtol "
+                f"2e-5, atol 2e-7 for p and m, 1e-9 for v{unit}): {worst[1]}")
+            check(worst[0] <= 1.0, f"fused_row_adam {name} {dtype} disagrees")
+            if dtype == torch.float32:
+                results[name] = dict(max_abs_err=err)
+            del p0, kp, ks, pp, ps
+
+        # times at the main path's shapes: one step's 2048 rows, fp32 and bf16
+        for dtype in (torch.float32, torch.bfloat16):
+            p = torch.randn((n, d), generator=gen, device=device).to(dtype)
+            m = torch.rand((n, d), generator=gen, device=device).to(dtype) * 1e-3
+            v = torch.rand((n, d), generator=gen, device=device).to(dtype) * 1e-6
+            rows = row_adam_rows(gen, n, 2048, device)
+            g = torch.randn((2048, d), generator=gen, device=device)
+            count = torch.tensor(5, dtype=torch.int32, device=device)
+            r_s, g_s = prepare_sorted_rows(rows, g, n)
+            distinct = int((r_s < n).sum())
+            ms = cuda_ms(lambda: fused_row_adam(p, m, v, r_s, g_s, count, ROW_ADAM_LR), 20)
+            prep_ms = cuda_ms(lambda: prepare_sorted_rows(rows, g, n), 20)
+            plain_ms = cuda_ms(lambda: row_adam_reference(p, m, v, r_s, g_s, count,
+                                                          ROW_ADAM_LR), 5)
+            size = p.element_size()
+            bms, by = bound_ms(10 * n * d, 6 * n * d * size + distinct * d * 4 + 2048 * 4 + 4)
+            line = (f"fused_row_adam {name} ({n}, {d}) {str(dtype)[6:]}, 2048 rows ({distinct} "
+                    f"distinct): kernel {ms:.4f} ms (+ prepare_sorted_rows {prep_ms:.4f} ms), "
+                    f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            if dtype == torch.float32:
+                # the same step by torch's own kernels: the dense gradient,
+                # then a fused Adam, from the kernel's starting point
+                lib_p = torch.nn.Parameter(p.clone())
+                opt = torch.optim.Adam([lib_p], lr=ROW_ADAM_LR, fused=True)
+
+                def library():
+                    lib_p.grad = torch.zeros_like(lib_p).index_add_(0, rows, g)
+                    opt.step()
+
+                library()
+                state = opt.state[lib_p]
+                with torch.no_grad():
+                    lib_p.copy_(p)
+                    state["exp_avg"].copy_(m)
+                    state["exp_avg_sq"].copy_(v)
+                    state["step"].fill_(float(count) - 1)
+                    want = p.clone()
+                    fused_row_adam(want, m.clone(), v.clone(), r_s, g_s, count, ROW_ADAM_LR)
+                library()
+                lib_err = (lib_p.detach() - want).abs().max().item()
+                library_ms = cuda_ms(library, 10)
+                results[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                     bound_ms=bms, bound_by=by)
+                line += (f", library (zeros + index_add_ + Adam(fused=True).step) "
+                         f"{library_ms:.4f} ms, max abs diff from the kernel {lib_err:.3e}")
+                del lib_p, opt, state, want
+            say("kernel", line)
+            del p, m, v, g, g_s
+            torch.cuda.empty_cache()
+    return results
 
 
 def plain_in_slices(q, k, v, seed=None, keep=1.0, rows: int = 64):
@@ -162,17 +364,21 @@ def plain_attention():
         cf_diff.fused_mha = kernel
 
 
-def synthetic_dataset(seed: int):
-    """Baby's shape with ~9 train items per user, drawn with a popularity
-    skew (item weight ~ 1 / (rank + 10)), one val and one test item each."""
-    from chaorec_tpu_torch.data.loading import DATASET_STATS, RecDataset, _pad_lists
+def synthetic_dataset(name: str, seed: int, lens=(5, 14), features: bool = False):
+    """``name``'s shape with ``lens`` (low, high) train items per user, drawn
+    with a popularity skew (item weight ~ 1 / (rank + 10)), one val and one
+    test item each; with ``features``, the loader's synthetic image and text
+    features (``data/loading.synthetic_item_features``)."""
+    from chaorec_tpu_torch.data.loading import (DATASET_STATS, T_FEAT_DIM, T_FEAT_SEED,
+                                                V_FEAT_DIM, V_FEAT_SEED, RecDataset,
+                                                _pad_lists, synthetic_item_features)
 
-    num_user, num_item = DATASET_STATS[DATASET]
+    num_user, num_item = DATASET_STATS[name]
     rng = np.random.default_rng(seed)
     w = 1.0 / (np.arange(num_item) + 10.0)
     w = w[rng.permutation(num_item)]
     w /= w.sum()
-    lens = rng.integers(5, 14, num_user)
+    lens = rng.integers(*lens, num_user)
     hist = [rng.choice(num_item, size=int(n), replace=False, p=w) for n in lens]
     held = []
     for h in hist:
@@ -185,11 +391,17 @@ def synthetic_dataset(seed: int):
         held.append(picks)
     edges = np.array([(u, i) for u, h in enumerate(hist) for i in h], np.int32)
     users = np.arange(num_user, dtype=np.int32)
+    feats = {}
+    if features:
+        feats = dict(
+            v_feat=synthetic_item_features(edges, num_user, num_item, V_FEAT_DIM, V_FEAT_SEED),
+            t_feat=synthetic_item_features(edges, num_user, num_item, T_FEAT_DIM, T_FEAT_SEED))
     return RecDataset(
-        name=DATASET, num_user=num_user, num_item=num_item, train_edges=edges,
+        name=name, num_user=num_user, num_item=num_item, train_edges=edges,
         history=_pad_lists([h.tolist() for h in hist], fill=num_item, sort=True),
         val_users=users, val_pos=_pad_lists([[p[0]] for p in held], fill=-1),
         test_users=users, test_pos=_pad_lists([[p[1]] for p in held], fill=-1),
+        **feats,
     )
 
 
@@ -253,9 +465,11 @@ def device_profile(phase: str, what: str, fn, out_path: str) -> None:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    # device kernels only: an op's own row would count its kernels twice
+    # device kernels only: an op's own row, or a range such as
+    # Optimizer.step's annotation on the device, would count its kernels twice
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in events
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),
                   reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     check(busy_ms > 0, "the profiler saw no device kernel")
@@ -324,6 +538,253 @@ def check_serving(phase: str, path: str, ds, device, rank_ids, hist_global) -> N
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+class PreEpochTimer:
+    """Times each ``pre_epoch`` of a model class while active, with the
+    device synchronized at both ends, to split an epoch's training time."""
+
+    def __init__(self, cls):
+        self.cls, self.seconds = cls, []
+
+    def __enter__(self):
+        orig = self.orig = self.cls.pre_epoch
+
+        def timed(model, params, epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(model, params, epoch)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+
+        self.cls.pre_epoch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.pre_epoch = self.orig
+
+
+@contextlib.contextmanager
+def plain_table_update():
+    """The trainer's table step through row_adam_update (the plain path)
+    instead of the kernel. For the comparisons only."""
+    from chaorec_tpu_torch.ops.indexed_adam import row_adam_update
+    from chaorec_tpu_torch.train import loop
+
+    kernel = loop.table_adam_update
+    loop.table_adam_update = row_adam_update
+    try:
+        yield
+    finally:
+        loop.table_adam_update = kernel
+
+
+def check_embeddings_serving(phase: str, path: str, ds, device, model_name: str) -> None:
+    """An embeddings artifact of the best epoch: its tables' shapes, and HTTP
+    answers that are the tables' own top-k (bf16 inputs summed in float64
+    here), hold no seen item, and 404 on an unknown path; request latency."""
+    from chaorec_tpu_torch.serve import Recommender, serve_http
+
+    with np.load(path) as z:
+        check(str(z["kind"]) == "embeddings" and str(z["model"]) == model_name
+              and str(z["snapshot"]) == "best-epoch", f"artifact {z['kind']} {z['model']}")
+        ue, ie = z["user_emb"], z["item_emb"]
+    check(ue.shape[0] == ds.num_user and ie.shape[0] == ds.num_item
+          and ue.shape[1] == ie.shape[1], f"tables {ue.shape} {ie.shape}")
+    check(bool(np.isfinite(ue).all() and np.isfinite(ie).all()), "non-finite tables")
+    ub = torch.from_numpy(ue).to(torch.bfloat16).double().numpy()
+    ib = torch.from_numpy(ie).to(torch.bfloat16).double().numpy()
+    rec = Recommender.load(path, device)
+    srv = serve_http(rec, port=0, host="127.0.0.1")
+    port = srv.server_address[1]
+    try:
+        health = get_json(port, "/healthz")
+        check(health["ok"] and health["model"] == model_name, f"healthz: {health}")
+        users = [u for u in (0, 5, 17, 100, 4095, 4096) if u < ds.num_user] + [ds.num_user - 1]
+        k = 10
+        resp = get_json(port, f"/recommend?user={','.join(map(str, users))}&k={k}")
+        check(len(resp["results"]) == len(users), "wrong number of results")
+        worst = 0.0
+        for u, res in zip(users, resp["results"]):
+            want = ub[u] @ ib.T
+            seen = ds.history.values[u, :ds.history.lengths[u]]
+            want[seen] = -np.inf
+            got = [(it["item"] - ds.num_user, it["score"]) for it in res["items"]]
+            check(res["user"] == u and len(got) == k, f"user {u}: malformed answer")
+            check(not set(seen.tolist()) & {i for i, _ in got}, f"user {u}: a seen item")
+            kth = np.sort(want)[-k]
+            for i, score in got:
+                worst = max(worst, abs(score - want[i]), kth - want[i])
+        check(worst <= SCORE_TOL, f"answers are not the tables' top-{k}: off by {worst}")
+        try:
+            get_json(port, "/nowhere")
+            check(False, "unknown path answered")
+        except urllib.error.HTTPError as e:
+            check(e.code == 404, f"unknown path gave {e.code}")
+        lat = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            get_json(port, "/recommend?user=0,5,17&k=10")
+            lat.append((time.perf_counter() - t0) * 1e3)
+        say(phase, f"http on 127.0.0.1:{port} ({health['snapshot']} {model_name} tables "
+            f"{ue.shape}, {ie.shape}): {len(users)} users' top-{k} are the tables' own to "
+            f"{worst:.2e} (bound {SCORE_TOL:g}), no seen item, 404 on unknown path; "
+            f"/recommend 3 users k=10 latency p50 {np.median(lat):.3f} ms, "
+            f"p99 {np.percentile(lat, 99):.3f} ms over {len(lat)} requests")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def freedom_phases(args, device) -> int:
+    """Phases 10-13: FREEDOM's CLI run on sports, one step kernel vs plain
+    path, the profiles and the bf16 leg. Returns the CLI run's
+    fused_row_adam launches."""
+    from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.config import Config, grid_combinations, load_yaml_config
+    from chaorec_tpu_torch.data.loading import data_load
+    from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.models.freedom import FREEDOM
+    from chaorec_tpu_torch.ops.fused_attn import fused_mha, fused_mha_bwd
+    from chaorec_tpu_torch.ops.mxu import bdot
+    from chaorec_tpu_torch.ops.row_adam import fused_row_adam
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    # 10. freedom: the CLI's grid run of FREEDOM on sports ------------------
+    t0 = time.perf_counter()
+    fds = (data_load(FREEDOM_DATASET, args.data_root, has_v=True, has_t=True) if args.data_root
+           else synthetic_dataset(FREEDOM_DATASET, args.seed, lens=(4, 8), features=True))
+    say("freedom", f"{'data_load' if args.data_root else 'synthetic'} {FREEDOM_DATASET} "
+        f"({fds.num_user}, {fds.num_item}), {fds.num_edges} train edges, v_feat "
+        f"{fds.v_feat.shape}, t_feat {fds.t_feat.shape}: {time.perf_counter() - t0:.2f} s")
+    combo = next(grid_combinations(load_yaml_config("FREEDOM")))
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "freedom.npz")
+        fcfg = Config(Model="FREEDOM", data_path=FREEDOM_DATASET, seed=args.seed,
+                      num_epoch=FREEDOM_EPOCHS, log_dir=args.out_dir, export_artifact=art)
+        probe = EpochProbe()
+        logging.getLogger().addFilter(probe)
+        torch.cuda.reset_peak_memory_stats()
+        fused_mha.launches = fused_mha_bwd.launches = fused_row_adam.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with PreEpochTimer(FREEDOM) as pre:
+                fbest = cli.run(fcfg, None, fds, device)  # reads Model_YAML/FREEDOM.yaml
+                torch.cuda.synchronize()
+        finally:
+            logging.getLogger().removeFilter(probe)
+        freedom_run_s = time.perf_counter() - t0
+        freedom_launches = fused_row_adam.launches
+        attn_launches = (fused_mha.launches, fused_mha_bwd.launches)
+        n_fbatches = math.ceil(fds.num_edges / fcfg.batch_size)
+        expected = FREEDOM_EPOCHS * n_fbatches * 2
+        for e, (ep, pre_s) in enumerate(zip(probe.epochs, pre.seconds)):
+            say("freedom", f"epoch {e + 1}: loss {ep['loss']:.5f}, wall {ep['wall_s']:.3f} s "
+                f"(pre_epoch {pre_s:.3f} s, training {ep['train_s'] - pre_s:.3f} s, eval "
+                f"{ep['eval_s']:.3f} s), peak device memory {ep['peak_gib']:.2f} GiB")
+        say("freedom", f"cli.run {combo}: {FREEDOM_EPOCHS} epochs x {n_fbatches} batches of "
+            f"{fcfg.batch_size} + export: {freedom_run_s:.3f} s wall; fused_row_adam launches "
+            f"{freedom_launches} (expected {expected} = {FREEDOM_EPOCHS} x {n_fbatches} x 2 "
+            f"tables), attention launches {attn_launches} (expected (0, 0))")
+        check(freedom_launches == expected and attn_launches == (0, 0),
+              f"FREEDOM launched {freedom_launches} and {attn_launches}")
+        check(len(probe.epochs) == len(pre.seconds) == FREEDOM_EPOCHS,
+              f"{len(probe.epochs)} epochs logged, {len(pre.seconds)} pre_epochs")
+        check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
+        check(sorted(fbest) == [5, 10, 20] and all(
+            math.isfinite(v) for m in fbest.values() for v in m.values()), f"best {fbest}")
+        say("freedom", "best test metrics: " + "; ".join(
+            f"@{k} recall {m['recall']:.5f} ndcg {m['ndcg']:.5f}" for k, m in fbest.items()))
+        check_embeddings_serving("freedom", art, fds, device, "FREEDOM")
+    torch.cuda.empty_cache()
+
+    # 11. fstep: one FREEDOM step, kernel path against plain path -----------
+    scfg = fcfg.replace(**combo, export_artifact="")
+    fmodel = build_model(scfg, fds, device)
+    trainer = Trainer(fmodel, fds, scfg)
+    init = trainer.init_params()
+    fmodel.pre_epoch(init, 0)
+    fbatch = make_edge_batches(trainer.generator, trainer.edges, scfg.batch_size)[0]
+    fbatch = dataclasses.replace(fbatch, neg_items=sample_negatives(
+        trainer.generator, fbatch.users, trainer.history, fmodel.num_item, scfg.neg_candidates))
+    tables = fmodel.table_params
+
+    def freedom_step():
+        params = {n: t.detach().clone() if n in tables else t.detach().clone().requires_grad_()
+                  for n, t in init.items()}
+        opt = trainer.make_optimizer(params)
+        loss = trainer.train_step(params, opt, fbatch).item()
+        return loss, params, trainer.table_state
+
+    before = fused_row_adam.launches
+    k_loss, k_params, k_state = freedom_step()
+    check(fused_row_adam.launches == before + len(tables), "the kernel step did not launch")
+    with plain_table_update():
+        p_loss, p_params, p_state = freedom_step()
+    check(fused_row_adam.launches == before + len(tables), "the plain step launched")
+    worst = max((tol_share(k_params[n], p_params[n], **ROW_P_TOL), n) for n in p_params)
+    for n in tables:
+        worst = max(worst, (tol_share(k_state[n].m, p_state[n].m, **ROW_P_TOL), n + ".m"),
+                    (tol_share(k_state[n].v, p_state[n].v, **ROW_V_TOL), n + ".v"))
+    say("fstep", f"one FREEDOM step of {fbatch.users.shape[0]} edges, kernel vs plain table "
+        f"update on the same batch and negatives: loss {k_loss:.7f} vs {p_loss:.7f}; worst "
+        f"of params, tables and moments {worst[1]} at {worst[0]:.3f} of its tolerance")
+    check(k_loss == p_loss and worst[0] <= 1.0, "FREEDOM step disagrees")
+    del k_params, k_state, p_params, p_state
+
+    # 12. profile: a FREEDOM step, a pre_epoch, and the row operators --------
+    params = {n: t.detach().clone() if n in tables else t.detach().clone().requires_grad_()
+              for n, t in init.items()}
+    opt = trainer.make_optimizer(params)
+    device_profile("profile", f"one FREEDOM training step of {scfg.batch_size} edges (forward, "
+                   "backward, Adam, two row-sparse table updates)",
+                   lambda: trainer.train_step(params, opt, fbatch),
+                   os.path.join(args.out_dir, "chip_smoke_freedom_step_profile.txt"))
+    device_profile("profile", "one FREEDOM pre_epoch (Gumbel top-k pruning, masked R, "
+                   "R^T, R R^T, R^T R)", lambda: fmodel.pre_epoch(params, 1),
+                   os.path.join(args.out_dir, "chip_smoke_freedom_pre_epoch_profile.txt"))
+    r, rt = fmodel.masked_r, fmodel._rt
+    nu, ni = r.shape
+    rrt_ms = cuda_ms(lambda: bdot(r, rt), 3)
+    rtr_ms = cuda_ms(lambda: bdot(rt, r), 3)
+    rrt_bound = bound_ms(2 * nu * nu * ni, 2 * 2 * nu * ni + 4 * nu * nu, PEAK_BF16_FLOPS)
+    rtr_bound = bound_ms(2 * ni * ni * nu, 2 * 2 * nu * ni + 4 * ni * ni, PEAK_BF16_FLOPS)
+    say("profile", f"R R^T ({nu}x{ni} @ {ni}x{nu}, bf16 in, fp32 out): {rrt_ms:.3f} ms, bound "
+        f"{rrt_bound[0]:.3f} ms ({rrt_bound[1]}); R^T R: {rtr_ms:.3f} ms, bound "
+        f"{rtr_bound[0]:.3f} ms ({rtr_bound[1]})")
+    # The same product with rows of whole 16-byte vectors (an item axis
+    # padded with zero columns to a multiple of 8): a measurement for the
+    # next step, not a path of the port.
+    rp = torch.nn.functional.pad(r, (0, -ni % 8))
+    rpt = rp.t().contiguous()
+    say("profile", f"R R^T with the item axis padded to {rp.shape[1]} columns: "
+        f"{cuda_ms(lambda: bdot(rp, rpt), 3):.3f} ms")
+    del params, opt, init, trainer, r, rt, rp, rpt
+    torch.cuda.empty_cache()
+
+    # the bf16 leg (--relaxed_precision bf16): one epoch with the tables and
+    # their moments stored in bf16, through the same kernel
+    bcfg = scfg.replace(relaxed_precision="bf16", num_epoch=1)
+    btrainer = Trainer(fmodel, fds, bcfg)
+    before = fused_row_adam.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bbest = btrainer.run()
+    torch.cuda.synchronize()
+    bf16_s = time.perf_counter() - t0
+    blaunches = fused_row_adam.launches - before
+    say("bf16", f"one FREEDOM epoch with bf16 tables and moments: {bf16_s:.3f} s wall (pre_epoch, "
+        f"training and eval), fused_row_adam launches {blaunches} (expected {n_fbatches * 2}), "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; test "
+        f"recall@20 {bbest[20]['recall']:.5f}")
+    check(blaunches == n_fbatches * 2, f"the bf16 epoch launched {blaunches}")
+    check(all(btrainer.table_state[n].m.dtype == torch.bfloat16 for n in tables),
+          "the bf16 leg's moments are not bf16")
+    check(all(math.isfinite(v) for m in bbest.values() for v in m.values()), f"bf16 {bbest}")
+    del fmodel, btrainer
+    torch.cuda.empty_cache()
+    return freedom_launches
 
 
 def main(argv=None) -> int:
@@ -422,9 +883,14 @@ def main(argv=None) -> int:
     check(err <= ATTN_TOL, f"fused_mha export chunk: max abs err {err} > {ATTN_TOL}")
     chunk_ms = cuda_ms(lambda: fused_mha(q, k, v, 0), 5)
     chunk_plain_ms = cuda_ms(lambda: plain_in_slices(q, k, v), 2)
+    chunk_sdpa_ms, sdpa_out = sdpa_ms(q, k, v)
+    sdpa_err = (sdpa_out - got).abs().max().item()
+    chunk_bound = attn_bound((chunk, 4, 1034, 1034, 4))
     say("kernel", f"export chunk ({chunk}, 4, 1034, 1034, 4) keep 1.0: max_abs_err {err:.3e}, "
-        f"kernel {chunk_ms:.3f} ms, plain in 64-row slices {chunk_plain_ms:.3f} ms")
-    del q, k, v, got
+        f"kernel {chunk_ms:.3f} ms, plain in 64-row slices {chunk_plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {chunk_sdpa_ms:.3f} ms (max abs diff "
+        f"from the kernel {sdpa_err:.3e}), bound {chunk_bound[0]:.3f} ms ({chunk_bound[1]})")
+    del q, k, v, got, sdpa_out
 
     # the training batch: forward and backward, keep 0.5
     q, k, v = (t.requires_grad_() for t in qkv(TRAIN_BATCH, 4, 1034, 1034, 4))
@@ -450,10 +916,18 @@ def main(argv=None) -> int:
     check(max(rel) <= BWD_REL_TOL, "fused_mha_bwd disagrees at the training batch")
     del q, k, v, dout, out, grads
     torch.cuda.empty_cache()
+    train_shape = (TRAIN_BATCH, 4, 1034, 1034, 4)
+    train_fwd_bound, train_bwd_bound = attn_bound(train_shape), attn_bound(train_shape, True)
+    say("kernel", f"training batch bounds: fwd {train_fwd_bound[0]:.3f} ms "
+        f"({train_fwd_bound[1]}), bwd {train_bwd_bound[0]:.3f} ms ({train_bwd_bound[1]})")
+
+    # the row-sparse Adam: held to its plain path, then timed
+    row_adam = row_adam_phase(gen, device)
 
     # 4. slice: export over every user ----------------------------------
     t0 = time.perf_counter()
-    ds = data_load(DATASET, args.data_root) if args.data_root else synthetic_dataset(args.seed)
+    ds = (data_load(DATASET, args.data_root) if args.data_root
+          else synthetic_dataset(DATASET, args.seed))
     cfg = Config(data_path=DATASET, seed=args.seed, **MODEL_CONFIG)
     model = build_model(cfg, ds, device)
     params = model.init_params(torch.Generator(device=device).manual_seed(args.seed))
@@ -638,28 +1112,48 @@ def main(argv=None) -> int:
     device_profile("profile", f"one training step of {TRAIN_BATCH} users (forward, backward, "
                    "Adam)", train_step, os.path.join(args.out_dir, "chip_smoke_train_profile.txt"))
 
+    del leaves, opt, params, full, step_state, model
+    torch.cuda.empty_cache()
+
+    freedom_launches = freedom_phases(args, device)
+
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
-    # (the export of phase 4, the CLI run of phase 7).
+    # (the CF_Diff export of phase 4, the CLI runs of phases 7 and 10).
     fwd = dict(route="cuda", source="chaorec_tpu_torch/csrc/fused_mha.cu",
                replaces="chaorec_tpu/ops/pallas_attn.py:65")
-    print(json.dumps({"kernels": [
+    no_library = "no PyTorch call draws this Philox dropout mask"
+    entries = [
         {"name": "fused_mha@export", **fwd, "shape": [chunk, 4, 1034, 1034, 4],
          "keep_prob": 1.0, "launches": export_counts[0], "max_abs_err": fwd_err[1.0],
-         "ms": chunk_ms, "plain_ms": chunk_plain_ms},
-        {"name": "fused_mha@train", **fwd, "shape": [TRAIN_BATCH, 4, 1034, 1034, 4],
+         "ms": chunk_ms, "plain_ms": chunk_plain_ms, "bound_ms": chunk_bound[0],
+         "bound_by": chunk_bound[1], "library_ms": chunk_sdpa_ms,
+         "note": "library: scaled_dot_product_attention, one call"},
+        {"name": "fused_mha@train", **fwd, "shape": list(train_shape),
          "keep_prob": 0.5, "launches": train_launches[0], "max_abs_err": fwd_err[0.5],
-         "ms": train_fwd_ms, "plain_ms": train_fwd_plain_ms,
+         "ms": train_fwd_ms, "plain_ms": train_fwd_plain_ms, "bound_ms": train_fwd_bound[0],
+         "bound_by": train_fwd_bound[1], "library_ms": None,
          "note": "launches: the CLI run's training forwards at keep 0.5 and its eval "
-                 "and export forwards at keep 1.0"},
+                 f"and export forwards at keep 1.0; {no_library}"},
         {"name": "fused_mha_bwd@train", "route": "cuda",
          "source": "chaorec_tpu_torch/csrc/fused_mha_bwd.cu",
          "replaces": "chaorec_tpu/ops/pallas_attn.py:82",
-         "shape": [TRAIN_BATCH, 4, 1034, 1034, 4], "keep_prob": 0.5,
+         "shape": list(train_shape), "keep_prob": 0.5,
          "launches": train_launches[1], "max_abs_err": bwd_err, "ms": train_bwd_ms,
-         "plain_ms": train_bwd_plain_ms,
-         "note": "one launch is one backward call: the dq kernel, then the dk/dv kernel"},
-    ]}), flush=True)
+         "plain_ms": train_bwd_plain_ms, "bound_ms": train_bwd_bound[0],
+         "bound_by": train_bwd_bound[1], "library_ms": None,
+         "note": f"one launch is one backward call: the dq kernel, then the dk/dv kernel; "
+                 f"{no_library}"},
+    ]
+    for name, shape in ROW_ADAM_SHAPES:
+        entries.append({
+            "name": f"fused_row_adam@train[{name}]", "route": "cuda",
+            "source": "chaorec_tpu_torch/csrc/row_adam.cu",
+            "replaces": "chaorec_tpu/ops/pallas_row_adam.py:44", "shape": list(shape),
+            "dtype": "float32", "launches": freedom_launches, **row_adam[name],
+            "note": "launches: the FREEDOM CLI run's count over both tables (one launch per "
+                    "table per step); library: zeros + index_add_ + Adam(fused=True).step"})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -104,7 +104,7 @@ def test_cf_diff_ranklists_match(cf_diff_artifacts, tiny_dataset):
 def test_ranklists_artifact_loads_in_either_package(cf_diff_artifacts, loader):
     """The port's artifact answers the same through both Recommenders."""
     _, tpath = cf_diff_artifacts
-    rec = (tserve.Recommender.load(tpath) if loader == "torch"
+    rec = (tserve.Recommender.load(tpath, "cpu") if loader == "torch"
            else jserve.Recommender.load(tpath))
     with np.load(tpath) as z:
         ids = z["rank_ids"]
@@ -118,7 +118,7 @@ def test_ranklists_artifact_loads_in_either_package(cf_diff_artifacts, loader):
 
 @pytest.mark.parametrize("exclude_seen", [True, False])
 def test_recommend_matches_jax(bpr_artifact, tiny_dataset, exclude_seen):
-    trec = tserve.Recommender.load(bpr_artifact)
+    trec = tserve.Recommender.load(bpr_artifact, "cpu")
     jrec = jserve.Recommender.load(bpr_artifact)
     users = list(range(tiny_dataset.num_user))
     _assert_same_ranking(trec.recommend(users, k=10, exclude_seen=exclude_seen),
@@ -127,7 +127,7 @@ def test_recommend_matches_jax(bpr_artifact, tiny_dataset, exclude_seen):
 
 def test_recommend_excludes_history_and_validates(bpr_artifact, tiny_dataset):
     ds = tiny_dataset
-    rec = tserve.Recommender.load(bpr_artifact)
+    rec = tserve.Recommender.load(bpr_artifact, "cpu")
     for u, recs in zip([0, 1, 2], rec.recommend([0, 1, 2], k=10)):
         seen = set((ds.history.values[u, :ds.history.lengths[u]] + ds.num_user).tolist())
         assert not seen.intersection(i for i, _ in recs)
@@ -138,14 +138,14 @@ def test_recommend_excludes_history_and_validates(bpr_artifact, tiny_dataset):
 
 @pytest.mark.parametrize("items", [[3], [0, 5, 47], [64 + 3, 64 + 20]])
 def test_similar_items_match_jax(bpr_artifact, items):
-    trec = tserve.Recommender.load(bpr_artifact)
+    trec = tserve.Recommender.load(bpr_artifact, "cpu")
     jrec = jserve.Recommender.load(bpr_artifact)
     _assert_same_ranking(trec.similar_items(items, k=5), jrec.similar_items(items, k=5))
 
 
 @pytest.mark.parametrize("history", [[0, 1, 2, 3], [64 + 30, 64 + 31]])
 def test_fold_in_matches_jax(bpr_artifact, history):
-    trec = tserve.Recommender.load(bpr_artifact)
+    trec = tserve.Recommender.load(bpr_artifact, "cpu")
     jrec = jserve.Recommender.load(bpr_artifact)
     _assert_same_ranking([trec.fold_in(history, k=8)], [jrec.fold_in(history, k=8)])
     with pytest.raises(ValueError):
@@ -170,11 +170,11 @@ def test_embeddings_export_matches_jax(bpr_artifact, tiny_dataset, tmp_path):
         assert set(z.files) == set(want)
         for k in z.files:
             np.testing.assert_array_equal(z[k], want[k], err_msg=k)
-    assert tserve.Recommender.load(path).info() == jserve.Recommender.load(path).info()
+    assert tserve.Recommender.load(path, "cpu").info() == jserve.Recommender.load(path).info()
 
 
 def test_http_endpoint(bpr_artifact):
-    rec = tserve.Recommender.load(bpr_artifact)
+    rec = tserve.Recommender.load(bpr_artifact, "cpu")
     srv = tserve.serve_http(rec, port=0)
     port = srv.server_address[1]
 
