@@ -16,6 +16,8 @@ from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph, build_norm_adj
 from chaorec_tpu_torch.models import register_model
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
 from chaorec_tpu_torch.models.freedom import FREEDOM
+from chaorec_tpu_torch.models.ncl import NCL
+from chaorec_tpu_torch.models.sgl import SGL
 
 
 def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device) -> BipartiteGraph:
@@ -56,3 +58,19 @@ def _freedom(cfg: Config, ds: RecDataset, device: torch.device) -> FREEDOM:
         cfg.n_layers, cfg.mm_layers, cfg.ii_topk,
         mm_image_weight=cfg.lambda_coeff,
     )
+
+
+@register_model("SGL")
+def _sgl(cfg: Config, ds: RecDataset, device: torch.device) -> SGL:
+    # main.py:302-303: SGL(..., dim_E, reg_weight, n_layers, aggr_mode, ssl_temp,
+    #   ssl_alpha, device): ssl_alpha is the SSL loss weight
+    return SGL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device),
+               cfg.dim_E, cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)
+
+
+@register_model("NCL")
+def _ncl(cfg: Config, ds: RecDataset, device: torch.device) -> NCL:
+    # main.py:305-306: NCL(..., dim_E, reg_weight, n_layers, aggr_mode, ssl_temp,
+    #   ssl_alpha, device)
+    return NCL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device),
+               cfg.dim_E, cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)

@@ -10,8 +10,9 @@ purpose:
 - every reduction is a weighted mean, so a short or padded batch gives the
   reference's per-batch mean.
 
-``info_nce`` and ``catalog_logsumexp`` come with the streaming logsumexp
-kernel they feed.
+``catalog_logsumexp`` goes through the streaming logsumexp kernels
+(``ops/streaming_lse.py``) on the card. ``info_nce`` comes with SimGCL and
+XSimGCL, its only users.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from chaorec_tpu_torch.ops.streaming_lse import streaming_logsumexp
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -59,3 +62,13 @@ def emb_l2_reg(reg_weight: float, embeddings: Sequence[torch.Tensor],
         sq = torch.mean(e ** 2, dim=-1) if e.dim() > 1 else e ** 2
         total = total + masked_mean(sq, weights)
     return reg_weight * total
+
+
+def catalog_logsumexp(q: torch.Tensor, k: torch.Tensor,
+                      temperature: float = 1.0) -> torch.Tensor:
+    """logsumexp(q @ k.T / temperature, axis=-1) (B,) for full-catalog
+    contrastive denominators. q is divided by the temperature first (so the
+    gradients stay exact), then ``streaming_logsumexp`` takes it: the CUDA
+    kernels for a card's tensors, whatever the size, the plain version on
+    the CPU."""
+    return streaming_logsumexp(q / temperature, k)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``chaorec_tpu_torch``) on one CUDA card.
 
-Drives the port's three paths once, as a user would, each at its model's
+Drives the port's paths once, as a user would, each at its model's
 published width with random weights from ``--seed``:
 
 - CF_Diff (1034 tokens, d_model 16, 4 heads, 2 cross-attention rounds; the
@@ -14,14 +14,21 @@ published width with random weights from ``--seed``:
   (28940 users x 15207 items, 4096- and 384-wide item features): the
   CLI's grid run with BPR batches of 1024 edges, whose trainable feature
   tables are stepped by the row-sparse Adam kernel, then the export and
-  serving of its embeddings.
+  serving of its embeddings;
+- SGL (dim 64, 3 layers, lr 0.01, reg 0.1, ssl_alpha 1e-3, ssl_temp 0.1;
+  the first combo of Model_YAML/SGL.yaml) and NCL (dim 64, 2 layers, lr
+  1e-3, reg 1e-5, ssl_alpha 1e-5, ssl_temp 0.01, 200 k-means prototypes;
+  the first combo of Model_YAML/NCL.yaml) on the same sports-sized set:
+  the CLI's grid run with BPR batches of 1024 edges, whose full-catalog
+  contrastive terms go through the streaming logsumexp kernels (forward,
+  dq, dk), then (SGL) the export and serving of its embeddings.
 
 Phases, each printing its own lines:
 
 1. device   the card's name and power limit (nvidia-smi); fails without CUDA
-2. build    compile csrc/fused_mha.cu, csrc/fused_mha_bwd.cu and
-            csrc/row_adam.cu with nvcc (sm_90a), all at once, and print
-            ptxas's registers and spills
+2. build    compile csrc/fused_mha.cu, csrc/fused_mha_bwd.cu,
+            csrc/row_adam.cu and csrc/streaming_lse.cu with nvcc (sm_90a),
+            all at once, and print ptxas's registers and spills
 3. kernel   fused_mha at keep 1.0 and 0.5 against mha_reference under the
             same mask; its backward against autograd of mha_reference;
             both timed against the plain version at the export chunk and
@@ -32,7 +39,16 @@ Phases, each printing its own lines:
             row_adam_update at (15207, 4096) and (15207, 384), fp32 and
             bf16 storage, three steps with duplicates, sentinels, tile
             edges, rows 0 and N-1, B 2048 and 1; timed against its plain
-            version and against zeros + index_add_ + a fused torch Adam
+            version and against zeros + index_add_ + a fused torch Adam,
+            fp32 and bf16;
+            streaming_logsumexp's forward, dq and dk kernels against the
+            plain version and its autograd at SGL's user and item sides
+            (1024 x 28940 and 1024 x 15207, E 64, temperature 0.1), the
+            last batch (381 x 15207), NCL's prototypes (1024 x 200 at
+            temperature 0.01, k without gradient: no dk launch) and a
+            small ragged case (7 x 513); timed at the two SGL shapes
+            against the plain version and the library route
+            (torch.logsumexp(q @ k.T) and its autograd, two calls)
 4. slice    CF_Diff export_artifact over every user (the kernel launch
             counts are reset just before and read just after), then the
             kernel path's scores against the plain path's and the CPU's
@@ -59,6 +75,22 @@ Phases, each printing its own lines:
             pre_epoch; the time of the per-epoch products R R^T and R^T R
 13. bf16    one FREEDOM epoch with --relaxed_precision bf16 (the tables
             and their moments stored in bf16, through the same kernel)
+14. sgl     SGL cli.run on the sports-sized set of phase 10: 2 epochs with
+            --export_artifact (counts reset just before, read just after:
+            one forward, dq and dk launch per side per step); per epoch the
+            loss, training and eval times and the peak memory; the
+            exported embeddings served over HTTP
+15. sstep   one SGL training step on a float32 R, kernel path against
+            plain path on the same batch, negatives and view masks: the
+            loss and gradients
+16. profile device time by kernel over one SGL training step (bf16 R),
+            split into K2, the propagation's GEMMs and fp32 copies, the
+            gathers and scatters, and the reductions
+17. ncl     NCL cli.run: 1 epoch (four full-catalog terms a step, two of
+            them over centroids without gradient: no dk launch for those)
+18. nstep   one NCL training step on a float32 R, kernel path against
+            plain path with equal prototypes: the loss and gradients
+19. profile the same split over one NCL training step (bf16 R)
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -70,7 +102,8 @@ without the result line.
 
 With ``--data_root`` pointing at a directory holding ``baby/train.npy`` and
 ``sports/train.npy`` etc., the real datasets are used instead of the
-synthetic ones.
+synthetic ones. TF32 is off for matmuls and convolutions throughout: the
+plain versions the kernels are held to sum in full fp32, as the kernels do.
 """
 
 from __future__ import annotations
@@ -102,7 +135,7 @@ DATASET = "baby"
 # the configuration is the Config defaults (dim_E and feature_embed 64,
 # batch 1024, graph_compute_dtype bfloat16), as bench.py's FREEDOM leg.
 FREEDOM_DATASET, FREEDOM_EPOCHS = "sports", 2
-KERNELS = ("fused_mha", "fused_mha_bwd", "row_adam")
+KERNELS = ("fused_mha", "fused_mha_bwd", "row_adam", "streaming_lse")
 # fp32 attention over 1034 keys with inputs ~N(0, 1): the kernel's online
 # softmax sums in another order than the reference's; 1e-5 is expected,
 # with or without dropout (both draw the same Philox mask).
@@ -130,6 +163,25 @@ ROW_ADAM_SHAPES = (("v_feat", (15207, 4096)), ("t_feat", (15207, 384)))
 ROW_ADAM_LR = 1e-3  # FREEDOM's learning rate
 # The card's published peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
+# The streaming logsumexp (B, N, E, temperature, k needs a gradient): SGL's
+# user and item sides at batch 1024 on sports, an epoch's last batch
+# (159,101 edges = 155 x 1024 + 381), NCL's prototype term (200 centroids,
+# N below one 512-row TPU tile, no gradient), and a small ragged case. q is
+# unit rows over the temperature, k unit rows, as the models give them.
+LSE_SHAPES = ((1024, 28940, 64, 0.1, True), (1024, 15207, 64, 0.1, True),
+              (381, 15207, 64, 0.1, True), (1024, 200, 64, 0.01, False),
+              (7, 513, 64, 0.1, True))
+LSE_MAIN = {"user": LSE_SHAPES[0], "item": LSE_SHAPES[1]}
+# Forward: rtol/atol 1e-5 against torch.logsumexp of the fp32 product (the
+# kernel sums the logits and the exps in another order). dq and dk: max abs
+# error within 1e-5 of the largest plain entry (as BWD_REL_TOL), times
+# max(1, 0.1 / temperature): an fp32 logit of unit rows over t carries
+# rounding of about 1e-7 / t, and p = exp(logit - lse) carries it relatively.
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+LSE_BWD_REL_TOL = 1e-5
+SSL_EPOCHS = {"SGL": 2, "NCL": 1}
+# full-catalog logsumexp terms per step, and those whose k needs a gradient
+SSL_TERMS = {"SGL": (2, 2), "NCL": (4, 2)}
 ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
 BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
 TRAIN_EPOCHS, TRAIN_BATCH = 2, 1024
@@ -215,8 +267,8 @@ def row_adam_phase(gen, device) -> dict:
     """fused_row_adam (through table_adam_update, as the trainer calls it)
     against row_adam_update, each of three steps from equal tables and
     moments, then its times at the main path's shapes.
-    Returns per table {max_abs_err, ms, plain_ms, library_ms, bound_ms,
-    bound_by}."""
+    Returns per (table, "float32" or "bfloat16") {max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by}."""
     from chaorec_tpu_torch.ops.indexed_adam import (init_table_state, row_adam_update,
                                                     table_adam_update)
     from chaorec_tpu_torch.ops.row_adam import (fused_row_adam, prepare_sorted_rows,
@@ -255,8 +307,7 @@ def row_adam_phase(gen, device) -> dict:
                 f"max abs err {err:.3e}, worst entry at {worst[0]:.3f} of its tolerance (rtol "
                 f"2e-5, atol 2e-7 for p and m, 1e-9 for v{unit}): {worst[1]}")
             check(worst[0] <= 1.0, f"fused_row_adam {name} {dtype} disagrees")
-            if dtype == torch.float32:
-                results[name] = dict(max_abs_err=err)
+            results[name, str(dtype)[6:]] = dict(max_abs_err=err)
             del p0, kp, ks, pp, ps
 
         # times at the main path's shapes: one step's 2048 rows, fp32 and bf16
@@ -275,39 +326,152 @@ def row_adam_phase(gen, device) -> dict:
                                                           ROW_ADAM_LR), 5)
             size = p.element_size()
             bms, by = bound_ms(10 * n * d, 6 * n * d * size + distinct * d * 4 + 2048 * 4 + 4)
-            line = (f"fused_row_adam {name} ({n}, {d}) {str(dtype)[6:]}, 2048 rows ({distinct} "
-                    f"distinct): kernel {ms:.4f} ms (+ prepare_sorted_rows {prep_ms:.4f} ms), "
-                    f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-            if dtype == torch.float32:
-                # the same step by torch's own kernels: the dense gradient,
-                # then a fused Adam, from the kernel's starting point
-                lib_p = torch.nn.Parameter(p.clone())
-                opt = torch.optim.Adam([lib_p], lr=ROW_ADAM_LR, fused=True)
+            # the same step by torch's own kernels: the dense gradient (in
+            # the table's dtype), then a fused Adam (whose moments follow
+            # the table's dtype), from the kernel's starting point
+            lib_p = torch.nn.Parameter(p.clone())
+            opt = torch.optim.Adam([lib_p], lr=ROW_ADAM_LR, fused=True)
+            g_lib = g.to(dtype)
 
-                def library():
-                    lib_p.grad = torch.zeros_like(lib_p).index_add_(0, rows, g)
-                    opt.step()
+            def library():
+                lib_p.grad = torch.zeros_like(lib_p).index_add_(0, rows, g_lib)
+                opt.step()
 
-                library()
-                state = opt.state[lib_p]
-                with torch.no_grad():
-                    lib_p.copy_(p)
-                    state["exp_avg"].copy_(m)
-                    state["exp_avg_sq"].copy_(v)
-                    state["step"].fill_(float(count) - 1)
-                    want = p.clone()
-                    fused_row_adam(want, m.clone(), v.clone(), r_s, g_s, count, ROW_ADAM_LR)
-                library()
-                lib_err = (lib_p.detach() - want).abs().max().item()
-                library_ms = cuda_ms(library, 10)
-                results[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                     bound_ms=bms, bound_by=by)
-                line += (f", library (zeros + index_add_ + Adam(fused=True).step) "
-                         f"{library_ms:.4f} ms, max abs diff from the kernel {lib_err:.3e}")
-                del lib_p, opt, state, want
-            say("kernel", line)
+            library()
+            state = opt.state[lib_p]
+            with torch.no_grad():
+                lib_p.copy_(p)
+                state["exp_avg"].copy_(m)
+                state["exp_avg_sq"].copy_(v)
+                state["step"].fill_(float(count) - 1)
+                want = p.clone()
+                fused_row_adam(want, m.clone(), v.clone(), r_s, g_s, count, ROW_ADAM_LR)
+            library()
+            lib_err = (lib_p.detach().float() - want.float()).abs().max().item()
+            library_ms = cuda_ms(library, 10)
+            results[name, str(dtype)[6:]].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                                 bound_ms=bms, bound_by=by)
+            say("kernel", f"fused_row_adam {name} ({n}, {d}) {str(dtype)[6:]}, 2048 rows "
+                f"({distinct} distinct): kernel {ms:.4f} ms (+ prepare_sorted_rows {prep_ms:.4f} "
+                f"ms), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (zeros + "
+                f"index_add_ + Adam(fused=True).step) {library_ms:.4f} ms, max abs diff from the "
+                f"kernel {lib_err:.3e}")
+            del lib_p, opt, state, want, g_lib
             del p, m, v, g, g_s
             torch.cuda.empty_cache()
+    return results
+
+
+def lse_inputs(gen, shape, device):
+    """q (B, E) unit rows over the temperature and k (N, E) unit rows (with
+    or without gradient), and a random weight g (B,) per row."""
+    b, n, e, temp, k_grad = shape
+    unit = [torch.nn.functional.normalize(torch.randn(rows, e, generator=gen, device=device), dim=1)
+            for rows in (b, n)]
+    q = (unit[0] / temp).requires_grad_()
+    k = unit[1].requires_grad_(k_grad)
+    return q, k, torch.randn(b, generator=gen, device=device)
+
+
+def lse_counts():
+    from chaorec_tpu_torch.ops.streaming_lse import (streaming_lse_dk, streaming_lse_dq,
+                                                     streaming_lse_fwd)
+
+    return tuple(f.launches for f in (streaming_lse_fwd, streaming_lse_dq, streaming_lse_dk))
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from chaorec_tpu_torch.ops.fused_attn import fused_mha, fused_mha_bwd
+    from chaorec_tpu_torch.ops.row_adam import fused_row_adam
+    from chaorec_tpu_torch.ops.streaming_lse import (streaming_lse_dk, streaming_lse_dq,
+                                                     streaming_lse_fwd)
+
+    for f in (fused_mha, fused_mha_bwd, fused_row_adam, streaming_lse_fwd, streaming_lse_dq,
+              streaming_lse_dk):
+        f.launches = 0
+
+
+def lse_bound(b, n, e, kernel):
+    """Bound of one K2 kernel: the logits take 2 E flops each and dq/dk's
+    product 2 E more (exps not counted); q and k are read once, lse and g
+    (B,) once each by the backward, and the output written once."""
+    flops = (2 if kernel == "fwd" else 4) * b * n * e
+    nbytes = 4 * (b * e + n * e + {"fwd": b, "dq": 2 * b + b * e, "dk": 2 * b + n * e}[kernel])
+    return bound_ms(flops, nbytes)
+
+
+def lse_phase(gen, device) -> dict:
+    """The streaming logsumexp kernels against the plain version and its
+    autograd at every shape of LSE_SHAPES, then their times at SGL's two
+    main shapes. Returns {"max_abs_err": {kernel: err}, side: {kernel:
+    {ms, plain_ms, library_ms, bound_ms, bound_by}}}."""
+    from chaorec_tpu_torch.ops.streaming_lse import (streaming_logsumexp,
+                                                     streaming_logsumexp_reference,
+                                                     streaming_lse_dk, streaming_lse_dq,
+                                                     streaming_lse_fwd)
+
+    errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
+    for shape in LSE_SHAPES:
+        b, n, e, temp, k_grad = shape
+        q, k, g = lse_inputs(gen, shape, device)
+        inputs = (q, k) if k_grad else (q,)
+        before = lse_counts()
+        got = streaming_logsumexp(q, k)
+        grads = torch.autograd.grad(got, inputs, g)
+        torch.cuda.synchronize()
+        launched = tuple(a - c for a, c in zip(lse_counts(), before))
+        check(launched == (1, 1, int(k_grad)), f"lse {shape} launched {launched}")
+        want = streaming_logsumexp_reference(q, k)
+        wgrads = torch.autograd.grad(want, inputs, g)
+        fwd_share = tol_share(got, want, **LSE_TOL)
+        errs["fwd"] = max(errs["fwd"], (got - want).abs().max().item())
+        rel_tol = LSE_BWD_REL_TOL * max(1.0, 0.1 / temp)
+        rels = []
+        for name, a, w in zip(("dq", "dk"), grads, wgrads):
+            err = (a - w).abs().max().item()
+            errs[name] = max(errs[name], err)
+            rels.append(err / w.abs().max().item())
+        say("kernel", f"streaming_logsumexp ({b}, {n}, {e}) at temperature {temp}, k "
+            f"{'with' if k_grad else 'without'} gradient: launches fwd/dq/dk {launched}; "
+            f"fwd max abs err {(got - want).abs().max().item():.3e} ({fwd_share:.3f} of rtol/atol "
+            f"1e-5); dq{', dk' if k_grad else ''} max abs err / max |plain| "
+            + ", ".join(f"{r:.2e}" for r in rels) + f" (bound {rel_tol:g})")
+        check(fwd_share <= 1.0 and max(rels) <= rel_tol, f"streaming_logsumexp {shape} disagrees")
+        del q, k, g, got, grads, want, wgrads
+
+    results = {"max_abs_err": errs}
+    for side, shape in LSE_MAIN.items():
+        b, n, e, _, _ = shape
+        q, k, g = lse_inputs(gen, shape, device)
+        q, k = q.detach(), k.detach()
+        lse = streaming_lse_fwd(q, k)
+        kq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+        plain = streaming_logsumexp_reference(kq, kk)
+        # the library route: no single PyTorch call computes this; the
+        # product and torch.logsumexp, two calls, and autograd through them
+        lib = torch.logsumexp(torch.mm(kq, kk.T), dim=-1)
+        row = {}
+        for kernel, fn, plain_fn, lib_fn in (
+                ("fwd", lambda: streaming_lse_fwd(q, k),
+                 lambda: streaming_logsumexp_reference(q, k),
+                 lambda: torch.logsumexp(torch.mm(q, k.T), dim=-1)),
+                ("dq", lambda: streaming_lse_dq(q, k, lse, g),
+                 lambda: torch.autograd.grad(plain, (kq,), g, retain_graph=True),
+                 lambda: torch.autograd.grad(lib, (kq,), g, retain_graph=True)),
+                ("dk", lambda: streaming_lse_dk(q, k, lse, g),
+                 lambda: torch.autograd.grad(plain, (kk,), g, retain_graph=True),
+                 lambda: torch.autograd.grad(lib, (kk,), g, retain_graph=True))):
+            bms, by = lse_bound(b, n, e, kernel)
+            row[kernel] = dict(ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain_fn, 10),
+                               library_ms=cuda_ms(lib_fn, 10), bound_ms=bms, bound_by=by)
+            say("kernel", f"streaming_lse_{kernel} {side} side ({b}, {n}, {e}): kernel "
+                f"{row[kernel]['ms']:.4f} ms, plain {row[kernel]['plain_ms']:.4f} ms, library "
+                f"(torch.logsumexp(q @ k.T){'' if kernel == 'fwd' else ' and its autograd'}, two "
+                f"calls) {row[kernel]['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        results[side] = row
+        del q, k, g, lse, kq, kk, plain, lib
+        torch.cuda.empty_cache()
     return results
 
 
@@ -449,9 +613,11 @@ def get_json(port: int, path: str):
         return json.load(r)
 
 
-def device_profile(phase: str, what: str, fn, out_path: str) -> None:
+def device_profile(phase: str, what: str, fn, out_path: str, groups=None) -> None:
     """Wall time of ``fn`` unprofiled, then device time by kernel and the
-    idle share over one profiled call."""
+    idle share over one profiled call; with ``groups`` ({label: name
+    fragments}), also the device time of the kernels whose lowercased name
+    holds one of a group's fragments."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -478,6 +644,9 @@ def device_profile(phase: str, what: str, fn, out_path: str) -> None:
     for us, key, count in rows[:10]:
         say(phase, f"{us / 1e3:9.2f} ms  {100 * us / 1e3 / busy_ms:5.1f}%  "
             f"x{count:<4d} {key[:90]}")
+    for label, frags in (groups or {}).items():
+        ms = sum(r[0] for r in rows if any(f in r[1].lower() for f in frags)) / 1e3
+        say(phase, f"{label}: {ms:.2f} ms, {100 * ms / busy_ms:.1f}% of device time")
     with open(out_path, "w") as fh:
         fh.write(events.table(sort_by="self_device_time_total", row_limit=40))
 
@@ -636,13 +805,26 @@ def check_embeddings_serving(phase: str, path: str, ds, device, model_name: str)
         srv.server_close()
 
 
-def freedom_phases(args, device) -> int:
+def sports_dataset(args):
+    """The sports-sized set phases 10-18 share: ``--data_root``'s, or the
+    synthetic one with the loader's synthetic features."""
+    from chaorec_tpu_torch.data.loading import data_load
+
+    t0 = time.perf_counter()
+    fds = (data_load(FREEDOM_DATASET, args.data_root, has_v=True, has_t=True) if args.data_root
+           else synthetic_dataset(FREEDOM_DATASET, args.seed, lens=(4, 8), features=True))
+    say("freedom", f"{'data_load' if args.data_root else 'synthetic'} {FREEDOM_DATASET} "
+        f"({fds.num_user}, {fds.num_item}), {fds.num_edges} train edges, v_feat "
+        f"{fds.v_feat.shape}, t_feat {fds.t_feat.shape}: {time.perf_counter() - t0:.2f} s")
+    return fds
+
+
+def freedom_phases(args, device, fds):
     """Phases 10-13: FREEDOM's CLI run on sports, one step kernel vs plain
-    path, the profiles and the bf16 leg. Returns the CLI run's
-    fused_row_adam launches."""
+    path, the profiles and the bf16 leg. Returns the fused_row_adam
+    launches of the CLI run and of the bf16 epoch."""
     from chaorec_tpu_torch import cli
     from chaorec_tpu_torch.config import Config, grid_combinations, load_yaml_config
-    from chaorec_tpu_torch.data.loading import data_load
     from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
     from chaorec_tpu_torch.models import build_model
     from chaorec_tpu_torch.models.freedom import FREEDOM
@@ -652,12 +834,6 @@ def freedom_phases(args, device) -> int:
     from chaorec_tpu_torch.train.loop import Trainer
 
     # 10. freedom: the CLI's grid run of FREEDOM on sports ------------------
-    t0 = time.perf_counter()
-    fds = (data_load(FREEDOM_DATASET, args.data_root, has_v=True, has_t=True) if args.data_root
-           else synthetic_dataset(FREEDOM_DATASET, args.seed, lens=(4, 8), features=True))
-    say("freedom", f"{'data_load' if args.data_root else 'synthetic'} {FREEDOM_DATASET} "
-        f"({fds.num_user}, {fds.num_item}), {fds.num_edges} train edges, v_feat "
-        f"{fds.v_feat.shape}, t_feat {fds.t_feat.shape}: {time.perf_counter() - t0:.2f} s")
     combo = next(grid_combinations(load_yaml_config("FREEDOM")))
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "freedom.npz")
@@ -666,7 +842,7 @@ def freedom_phases(args, device) -> int:
         probe = EpochProbe()
         logging.getLogger().addFilter(probe)
         torch.cuda.reset_peak_memory_stats()
-        fused_mha.launches = fused_mha_bwd.launches = fused_row_adam.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         try:
             with PreEpochTimer(FREEDOM) as pre:
@@ -676,7 +852,7 @@ def freedom_phases(args, device) -> int:
             logging.getLogger().removeFilter(probe)
         freedom_run_s = time.perf_counter() - t0
         freedom_launches = fused_row_adam.launches
-        attn_launches = (fused_mha.launches, fused_mha_bwd.launches)
+        attn_launches = (fused_mha.launches, fused_mha_bwd.launches, *lse_counts())
         n_fbatches = math.ceil(fds.num_edges / fcfg.batch_size)
         expected = FREEDOM_EPOCHS * n_fbatches * 2
         for e, (ep, pre_s) in enumerate(zip(probe.epochs, pre.seconds)):
@@ -686,8 +862,8 @@ def freedom_phases(args, device) -> int:
         say("freedom", f"cli.run {combo}: {FREEDOM_EPOCHS} epochs x {n_fbatches} batches of "
             f"{fcfg.batch_size} + export: {freedom_run_s:.3f} s wall; fused_row_adam launches "
             f"{freedom_launches} (expected {expected} = {FREEDOM_EPOCHS} x {n_fbatches} x 2 "
-            f"tables), attention launches {attn_launches} (expected (0, 0))")
-        check(freedom_launches == expected and attn_launches == (0, 0),
+            f"tables), attention and logsumexp launches {attn_launches} (expected none)")
+        check(freedom_launches == expected and attn_launches == (0,) * 5,
               f"FREEDOM launched {freedom_launches} and {attn_launches}")
         check(len(probe.epochs) == len(pre.seconds) == FREEDOM_EPOCHS,
               f"{len(probe.epochs)} epochs logged, {len(pre.seconds)} pre_epochs")
@@ -784,7 +960,173 @@ def freedom_phases(args, device) -> int:
     check(all(math.isfinite(v) for m in bbest.values() for v in m.values()), f"bf16 {bbest}")
     del fmodel, btrainer
     torch.cuda.empty_cache()
-    return freedom_launches
+    return freedom_launches, blaunches
+
+
+@contextlib.contextmanager
+def plain_logsumexp():
+    """catalog_logsumexp through streaming_logsumexp_reference (the plain
+    path) instead of the kernels. For the comparisons only."""
+    from chaorec_tpu_torch.ops import losses
+    from chaorec_tpu_torch.ops.streaming_lse import streaming_logsumexp_reference
+
+    kernel = losses.streaming_logsumexp
+    losses.streaming_logsumexp = streaming_logsumexp_reference
+    try:
+        yield
+    finally:
+        losses.streaming_logsumexp = kernel
+
+
+def first_combo(model_name: str):
+    """(combo, one-combo grid) of Model_YAML/{model_name}.yaml's first combo."""
+    from chaorec_tpu_torch.config import grid_combinations, load_yaml_config
+
+    combo = next(grid_combinations(load_yaml_config(model_name)))
+    grid = {k: [v] for k, v in combo.items()}
+    grid["hyper_parameters"] = list(combo)
+    return combo, grid
+
+
+def ssl_phases(args, device, fds) -> dict:
+    """Phases 14-19: SGL's and NCL's CLI runs on sports through the
+    streaming logsumexp kernels, SGL's export and serving, one step of each
+    kernel vs plain path, and each one's step profile. Returns each model's
+    (fwd, dq, dk) launches of its CLI run."""
+    from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.config import Config
+    from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.ops.fused_attn import fused_mha, fused_mha_bwd
+    from chaorec_tpu_torch.ops.row_adam import fused_row_adam
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    launches = {}
+    for name, phase in (("SGL", "sgl"), ("NCL", "ncl")):
+        # 14 / 17. the CLI's grid run, first combo ---------------------------
+        combo, grid = first_combo(name)
+        epochs = SSL_EPOCHS[name]
+        with tempfile.TemporaryDirectory() as tmp:
+            art = os.path.join(tmp, f"{name}.npz") if name == "SGL" else ""
+            cfg = Config(Model=name, data_path=FREEDOM_DATASET, seed=args.seed, num_epoch=epochs,
+                         log_dir=args.out_dir, export_artifact=art)
+            probe = EpochProbe()
+            logging.getLogger().addFilter(probe)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                best = cli.run(cfg, grid, fds, device)
+                torch.cuda.synchronize()
+            finally:
+                logging.getLogger().removeFilter(probe)
+            run_s = time.perf_counter() - t0
+            launches[name] = lse_counts()
+            others = (fused_mha.launches, fused_mha_bwd.launches, fused_row_adam.launches)
+            n_batches = math.ceil(fds.num_edges / cfg.batch_size)
+            terms, with_k_grad = SSL_TERMS[name]
+            expected = tuple(epochs * n_batches * t for t in (terms, terms, with_k_grad))
+            for e, ep in enumerate(probe.epochs):
+                say(phase, f"epoch {e + 1}: loss {ep['loss']:.5f}, wall {ep['wall_s']:.3f} s "
+                    f"(training {ep['train_s']:.3f} s, eval {ep['eval_s']:.3f} s), peak device "
+                    f"memory {ep['peak_gib']:.2f} GiB")
+            say(phase, f"cli.run {combo}: {epochs} epochs x {n_batches} batches of "
+                f"{cfg.batch_size}{' + export' if art else ''}: {run_s:.3f} s wall; "
+                f"streaming_lse fwd/dq/dk launches {launches[name]} (expected {expected} = "
+                f"{epochs} x {n_batches} x {terms} terms, {with_k_grad} of them with a k "
+                f"gradient), other kernels {others} (expected none)")
+            check(launches[name] == expected and others == (0, 0, 0),
+                  f"{name} launched {launches[name]} and {others}")
+            check(len(probe.epochs) == epochs, f"{len(probe.epochs)} epochs logged")
+            check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
+            check(sorted(best) == [5, 10, 20] and all(
+                math.isfinite(v) for m in best.values() for v in m.values()), f"best {best}")
+            say(phase, "best test metrics: " + "; ".join(
+                f"@{k} recall {m['recall']:.5f} ndcg {m['ndcg']:.5f}" for k, m in best.items()))
+            if art:
+                check_embeddings_serving(phase, art, fds, device, name)
+        torch.cuda.empty_cache()
+
+        # 15 / 18. one step, kernel path against plain path ------------------
+        # On a float32 R: bdot's backward rounds each propagated gradient to
+        # bf16 (as the JAX package's transpose does), so on the bf16 R an
+        # fp32-level difference from the kernel can flip one bf16 ulp of a
+        # large gradient entry, which is 4e-3 of it.
+        step_phase = {"SGL": "sstep", "NCL": "nstep"}[name]
+        scfg = cfg.replace(**combo, export_artifact="")
+
+        def setup(graph_dtype):
+            model = build_model(scfg.replace(graph_compute_dtype=graph_dtype), fds, device)
+            trainer = Trainer(model, fds, scfg)
+            init = trainer.init_params()
+            batch = make_edge_batches(trainer.generator, trainer.edges, scfg.batch_size)[0]
+            batch = dataclasses.replace(batch, neg_items=sample_negatives(
+                trainer.generator, batch.users, trainer.history, model.num_item,
+                scfg.neg_candidates))
+            return model, trainer, init, batch
+
+        model, trainer, init, batch = setup("float32")
+        if name == "SGL":
+            draws = model.view_masks(trainer.generator)
+            loss_fn = model.loss_with_masks
+        else:
+            draws = model.prototypes(init, trainer.generator)
+            loss_fn = model.loss_with_prototypes
+
+        def one_step():
+            leaves = {n: t.detach().clone().requires_grad_() for n, t in init.items()}
+            loss = loss_fn(leaves, batch, draws)
+            loss.backward()
+            return loss.item(), {n: t.grad for n, t in leaves.items()}
+
+        before = lse_counts()
+        k_loss, k_grads = one_step()
+        step_launches = tuple(a - b for a, b in zip(lse_counts(), before))
+        check(step_launches == (terms, terms, with_k_grad),
+              f"the kernel step launched {step_launches}")
+        with plain_logsumexp():
+            p_loss, p_grads = one_step()
+        check(lse_counts() == tuple(b + d for b, d in zip(before, step_launches)),
+              "the plain step launched")
+        scale = max(g.abs().max().item() for g in p_grads.values())
+        worst = max(((k_grads[n] - g).abs().max().item()
+                     / (STEP_RTOL * g.abs().max().item() + STEP_ATOL * scale), n)
+                    for n, g in p_grads.items())
+        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+        say(step_phase, f"one {name} step of {batch.users.shape[0]} edges on a float32 R, kernel "
+            f"vs plain logsumexp on the same batch, negatives and "
+            f"{'masks' if name == 'SGL' else 'prototypes'}: launches {step_launches}; loss "
+            f"{k_loss:.7f} vs {p_loss:.7f} (rel {loss_rel:.2e}, "
+            f"bound {STEP_LOSS_RTOL:g}); worst gradient {worst[1]} at {worst[0]:.3f} of its bound "
+            f"(rtol {STEP_RTOL:g} of the tensor's max + {STEP_ATOL:g} of the gradient's max "
+            f"{scale:.3e})")
+        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0, f"{name} step disagrees")
+        del k_grads, p_grads, model, trainer, init, draws
+        torch.cuda.empty_cache()
+
+        # 16 / 19. profile: where one step's device time goes ----------------
+        model, trainer, init, batch = setup(scfg.graph_compute_dtype)
+        params = {n: t.detach().clone().requires_grad_() for n, t in init.items()}
+        opt = trainer.make_optimizer(params)
+        what = ("two edge-dropout views" if name == "SGL"
+                else "k-means of both tables, 15 iterations each")
+        device_profile(
+            "profile", f"one {name} training step of {scfg.batch_size} edges (the dense bf16 "
+            f"propagation of {max(model.n_layers, 2)} layers, {what}, {terms} streaming_lse "
+            "terms, backward, Adam)",
+            lambda: trainer.train_step(params, opt, batch),
+            os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+            groups={"K2 (streaming_lse kernels and their combine passes)": (
+                        "lse_", "dq_combine"),
+                    "GEMMs (the dense bf16 R propagation and its backward; k-means)": (
+                        "gemm", "nvjet", "cutlass", "xmma"),
+                    "bf16 -> fp32 copies (bdot's backward casts R)": ("copy",),
+                    "gathers, scatters and index_add_ (views, row gathers, k-means)": (
+                        "index", "scatter", "gather"),
+                    "reductions (argmax, norms, sums)": ("reduce_kernel",)})
+        del params, opt, model, trainer, init
+        torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -921,8 +1263,10 @@ def main(argv=None) -> int:
     say("kernel", f"training batch bounds: fwd {train_fwd_bound[0]:.3f} ms "
         f"({train_fwd_bound[1]}), bwd {train_bwd_bound[0]:.3f} ms ({train_bwd_bound[1]})")
 
-    # the row-sparse Adam: held to its plain path, then timed
+    # the row-sparse Adam and the streaming logsumexp: held to their plain
+    # paths, then timed
     row_adam = row_adam_phase(gen, device)
+    lse = lse_phase(gen, device)
 
     # 4. slice: export over every user ----------------------------------
     t0 = time.perf_counter()
@@ -1115,11 +1459,14 @@ def main(argv=None) -> int:
     del leaves, opt, params, full, step_state, model
     torch.cuda.empty_cache()
 
-    freedom_launches = freedom_phases(args, device)
+    fds = sports_dataset(args)
+    freedom_launches, bf16_launches = freedom_phases(args, device, fds)
+    ssl_launches = ssl_phases(args, device, fds)
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
-    # (the CF_Diff export of phase 4, the CLI runs of phases 7 and 10).
+    # (the CF_Diff export of phase 4, the CLI runs of phases 7, 10 and 14,
+    # the bf16 epoch of phase 13).
     fwd = dict(route="cuda", source="chaorec_tpu_torch/csrc/fused_mha.cu",
                replaces="chaorec_tpu/ops/pallas_attn.py:65")
     no_library = "no PyTorch call draws this Philox dropout mask"
@@ -1145,14 +1492,29 @@ def main(argv=None) -> int:
          "note": f"one launch is one backward call: the dq kernel, then the dk/dv kernel; "
                  f"{no_library}"},
     ]
-    for name, shape in ROW_ADAM_SHAPES:
-        entries.append({
-            "name": f"fused_row_adam@train[{name}]", "route": "cuda",
-            "source": "chaorec_tpu_torch/csrc/row_adam.cu",
-            "replaces": "chaorec_tpu/ops/pallas_row_adam.py:44", "shape": list(shape),
-            "dtype": "float32", "launches": freedom_launches, **row_adam[name],
-            "note": "launches: the FREEDOM CLI run's count over both tables (one launch per "
-                    "table per step); library: zeros + index_add_ + Adam(fused=True).step"})
+    for dtype, launches, run in (("float32", freedom_launches, "the FREEDOM CLI run's"),
+                                 ("bfloat16", bf16_launches, "the bf16 epoch's")):
+        for name, shape in ROW_ADAM_SHAPES:
+            entries.append({
+                "name": f"fused_row_adam@train[{name}{'' if dtype == 'float32' else ',bf16'}]",
+                "route": "cuda", "source": "chaorec_tpu_torch/csrc/row_adam.cu",
+                "replaces": "chaorec_tpu/ops/pallas_row_adam.py:44", "shape": list(shape),
+                "dtype": dtype, "launches": launches, **row_adam[name, dtype],
+                "note": f"launches: {run} count over both tables (one launch per table per "
+                        "step); library: zeros + index_add_ + Adam(fused=True).step"})
+    nl = ssl_launches["NCL"]
+    for side, (b, n, e, temp, _) in LSE_MAIN.items():
+        for i, (kernel, line) in enumerate((("fwd", 44), ("dq", 95), ("dk", 116))):
+            entries.append({
+                "name": f"streaming_lse_{kernel}@sgl[{side}]", "route": "cuda",
+                "source": "chaorec_tpu_torch/csrc/streaming_lse.cu",
+                "replaces": f"chaorec_tpu/ops/pallas_lse.py:{line}", "shape": [b, n, e],
+                "temperature": temp, "launches": ssl_launches["SGL"][i],
+                "max_abs_err": lse["max_abs_err"][kernel], **lse[side][kernel],
+                "note": f"launches: the SGL CLI run's, both sides (the NCL run's: {nl[i]}); one "
+                        "launch is the kernel and its combine pass; library: no single "
+                        "PyTorch call computes this: torch.mm and torch.logsumexp"
+                        f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
