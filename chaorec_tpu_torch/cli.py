@@ -28,6 +28,7 @@ import torch
 from chaorec_tpu_torch.config import Config, grid_combinations, load_yaml_config, parse_cli
 from chaorec_tpu_torch.data.loading import RecDataset, data_load
 from chaorec_tpu_torch.models import build_model
+from chaorec_tpu_torch.params import clone_to
 from chaorec_tpu_torch.train.loop import Trainer, log_metrics
 
 LOG_FORMAT = "%(asctime)s %(levelname)s %(message)s"
@@ -102,8 +103,8 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
         model, params, mstate = best_export
         logging.info("export_artifact: exporting best-epoch weights to %s",
                      cfg.export_artifact)
-        export_artifact(model, {k: v.to(model.device) for k, v in params.items()},
-                        mstate, dataset, cfg.export_artifact, snapshot="best-epoch")
+        export_artifact(model, clone_to(params, model.device), clone_to(mstate, model.device),
+                        dataset, cfg.export_artifact, snapshot="best-epoch")
 
     logging.info("Best performance: {:.5f}".format(best_performance))
     logging.info("Best parameters: {}".format(best_params))

@@ -15,7 +15,10 @@ from chaorec_tpu_torch.data.loading import RecDataset, dense_interactions
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph, build_norm_adj
 from chaorec_tpu_torch.models import register_model
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
+from chaorec_tpu_torch.models.dccf import DCCF
+from chaorec_tpu_torch.models.dgcf import DGCF
 from chaorec_tpu_torch.models.freedom import FREEDOM
+from chaorec_tpu_torch.models.mgat import MGAT
 from chaorec_tpu_torch.models.ncl import NCL
 from chaorec_tpu_torch.models.sgl import SGL
 
@@ -74,3 +77,28 @@ def _ncl(cfg: Config, ds: RecDataset, device: torch.device) -> NCL:
     #   ssl_alpha, device)
     return NCL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device),
                cfg.dim_E, cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)
+
+
+@register_model("DCCF")
+def _dccf(cfg: Config, ds: RecDataset, device: torch.device) -> DCCF:
+    # main.py:325-326: DCCF(..., dim_E, reg_weight, n_layers, ssl_temp,
+    #   ssl_alpha, n_intents, cen_reg, device)
+    return DCCF(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha, cfg.n_intents,
+                cfg.cen_reg)
+
+
+@register_model("DGCF")
+def _dgcf(cfg: Config, ds: RecDataset, device: torch.device) -> DGCF:
+    # main.py:274-275: DGCF(..., dim_E, reg_weight, corDecay, n_factors,
+    #   n_iterations, n_layers, aggr_mode, device)
+    return DGCF(ds.num_user, ds.num_item, ds.train_edges, cfg.dim_E, cfg.reg_weight,
+                cfg.corDecay, cfg.n_factors, cfg.n_iterations, cfg.n_layers, device)
+
+
+@register_model("MGAT")
+def _mgat(cfg: Config, ds: RecDataset, device: torch.device) -> MGAT:
+    # main.py:292-293: MGAT(..., dim_E, reg_weight, device)
+    v, t = _feats(ds, device)
+    return MGAT(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                cfg.reg_weight)

@@ -5,8 +5,9 @@ Counterpart of ``chaorec_tpu/ops/init.py``. Each draws from an explicit
 numbers differ from ``jax.random``'s; parity tests carry the JAX package's
 initial params across with ``params.from_numpy`` instead.
 
-torch ``xavier_uniform_`` on a 2-D tensor (N, D) uses fan_in = D (dim 1),
-fan_out = N (dim 0): bound = gain * sqrt(6 / (fan_in + fan_out)).
+torch ``xavier_normal_`` and ``xavier_uniform_`` on a 2-D tensor (N, D)
+use fan_in = D (dim 1), fan_out = N (dim 0): normal std = gain * sqrt(2 /
+(fan_in + fan_out)), uniform bound = gain * sqrt(6 / (fan_in + fan_out)).
 """
 
 from __future__ import annotations
@@ -32,6 +33,13 @@ def _uniform(gen: torch.Generator, shape: Tuple[int, ...], low: float,
              high: float, dtype: torch.dtype) -> torch.Tensor:
     u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
     return u * (high - low) + low
+
+
+def xavier_normal(gen: torch.Generator, shape: Tuple[int, ...], gain: float = 1.0,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    fan_in, fan_out = _fans(shape)
+    std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+    return std * torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
 
 
 def xavier_uniform(gen: torch.Generator, shape: Tuple[int, ...], gain: float = 1.0,

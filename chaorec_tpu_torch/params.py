@@ -1,11 +1,14 @@
-"""Carry params and model state between numpy and the port's tensors.
+"""Carry params and model state between numpy, devices and the port's tensors.
 
 ``from_numpy`` turns the JAX package's ``init_params`` output (after
-``np.asarray`` on each leaf) or a state tuple such as CF_Diff's
-``(lt_hist, lt_count)`` into tensors on ``device``; ``to_numpy`` goes back.
-A model initialised in one package then computes the same thing in both.
-Dicts, tuples and lists are walked; their structure is kept. bf16 leaves
-(``--relaxed_precision bf16`` tables) keep their dtype and bits.
+``np.asarray`` on each leaf), a state tuple such as CF_Diff's ``(lt_hist,
+lt_count)`` or a single state array such as DGCF's routing scores into
+tensors on ``device``; ``to_numpy`` goes back. A model initialised in one
+package then computes the same thing in both. ``clone_to`` copies params or
+state to a device (the trainer's host copy of the best epoch, and back to
+the card for export). Dicts, tuples and lists are walked; their structure
+is kept. bf16 leaves (``--relaxed_precision bf16`` tables) keep their dtype
+and bits.
 """
 
 from __future__ import annotations
@@ -40,3 +43,15 @@ def to_numpy(tree: Any) -> Any:
     if tree is None:
         return None
     return tree.detach().cpu().numpy()
+
+
+def clone_to(tree: Any, device: torch.device | str) -> Any:
+    """A detached copy of every tensor of ``tree`` on ``device`` (a copy even
+    where the tensor is on ``device`` already)."""
+    if isinstance(tree, dict):
+        return {k: clone_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_to(v, device) for v in tree)
+    if tree is None:
+        return None
+    return tree.detach().to(device, copy=True)

@@ -53,11 +53,12 @@ def export_artifact(
 ) -> str:
     """Write a self-contained serving artifact for a model.
 
-    ``kind="embeddings"``: user/item tables from ``model.embeddings``.
+    ``kind="embeddings"``: user/item tables from ``model.embeddings``, or
+    for a stateful model from ``model.embeddings_stateful(params,
+    model_state)`` (DGCF's routing scores shape its tables).
     ``kind="ranklists"``: for rank_mode == "scores" models, per-user top-K
     global item ids and scores, ``eval_user_chunk`` users at a time on the
     model's device, seen items set to ``model.mask_value``.
-    ``model_state`` is unused by the ported models, which score without it.
     """
     common = dict(
         format_version=FORMAT_VERSION,
@@ -70,7 +71,10 @@ def export_artifact(
         history_lengths=dataset.history.lengths,
     )
     if model.rank_mode == "embeddings":
-        ue, ie = model.embeddings(params)
+        if getattr(model, "stateful", False):
+            ue, ie = model.embeddings_stateful(params, model_state)
+        else:
+            ue, ie = model.embeddings(params)
         np.savez_compressed(
             path, kind="embeddings",
             user_emb=ue.float().cpu().numpy(),

@@ -7,13 +7,16 @@ Counterpart of ``chaorec_tpu/train/loop.py`` for two kinds of model:
   the model state from batch to batch;
 - "bpr" models: each epoch shuffles the train edges; every batch of
   (user, positive) pairs gets one negative per row from outside the
-  user's history, drawn on the device. Models with ``table_params``
-  (FREEDOM's trainable feature tables) take the row-sparse table step: the
-  batch's rows of each table are gathered as leaf tensors, one backward
-  gives the dense gradients and the rows' gradients, Adam steps the dense
-  params, and ``ops/indexed_adam.table_adam_update`` steps each table
-  with a step count shared by the tables (on the card, the
-  ``csrc/row_adam.cu`` kernel, in place).
+  user's history, drawn on the device. A stateful one (DGCF's routing
+  scores) steps on ``loss_stateful`` and carries its state from batch to
+  batch, and evaluates and exports with ``embeddings_stateful``. Models
+  with ``table_params`` (FREEDOM's trainable feature tables) take the
+  row-sparse table step: the batch's rows of each table are gathered as
+  leaf tensors, one backward gives the dense gradients and the rows'
+  gradients, Adam steps the dense params, and
+  ``ops/indexed_adam.table_adam_update`` steps each table with a step
+  count shared by the tables (on the card, the ``csrc/row_adam.cu``
+  kernel, in place).
 
 Each epoch calls the model's ``pre_epoch`` first (graph pruning, operator
 rebuilds), counted as training time; then ranks the full catalog
@@ -40,8 +43,9 @@ ranking and metrics.
 Not ported: the JAX trainer's chunked epoch dispatch, its serialize guard,
 its compile sharing through injected hyperparameters and its one-epoch-deep
 eval pipeline exist for the TPU and its remote link. The rebuild-gated
-branch, checkpointing, mesh training and the profiler hook come with the
-models and slices that need them.
+branches (``epoch0_params``, ``frozen_state_epoch``), checkpointing, mesh
+training and the profiler hook come with the models and slices that need
+them: the trainer refuses a model that asks for one.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from chaorec_tpu_torch.eval.metrics import gene_metrics_pair, split_tensors
 from chaorec_tpu_torch.eval.ranking import gene_ranklist, rank_from_scores
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
 from chaorec_tpu_torch.ops.indexed_adam import init_table_state, table_adam_update
+from chaorec_tpu_torch.params import clone_to
 
 ADAM_BETAS = (0.9, 0.999)  # torch.optim.Adam defaults, as the reference uses
 ADAM_EPS = 1e-8
@@ -119,14 +124,21 @@ def apply_relaxed_precision(model: RecModel, params: Params, cfg: Config) -> Par
 
 class Trainer:
     """The standard trainer of a model on its device: stateful "user_rows"
-    models and stateless "bpr" models (with or without row-sparse tables)."""
+    models, and "bpr" models, stateful or with row-sparse tables."""
 
     def __init__(self, model: RecModel, dataset: RecDataset, cfg: Config):
-        self.user_rows = model.trainer_mode == "user_rows" and model.stateful
-        if not self.user_rows and (model.trainer_mode != "bpr" or model.stateful):
+        self.user_rows = model.trainer_mode == "user_rows"
+        if not (model.trainer_mode == "bpr" or (self.user_rows and model.stateful)):
             raise NotImplementedError(
                 f"{model.name}: trainer_mode {model.trainer_mode!r} with stateful="
                 f"{model.stateful} is not ported; it comes with its models")
+        if model.stateful and model.table_params:
+            raise NotImplementedError(f"{model.name}: a stateful model with row-sparse "
+                                      "tables is not ported")
+        for gate in ("epoch0_params", "frozen_state_epoch"):
+            if getattr(model, gate, None):
+                raise NotImplementedError(f"{model.name}: the rebuild-gated branch "
+                                          f"({gate}) is not ported; it comes with its models")
         self.model = model
         self.dataset = dataset
         self.cfg = cfg
@@ -167,13 +179,17 @@ class Trainer:
 
     def train_step(self, params: Params, optimizer: torch.optim.Optimizer,
                    batch: Batch) -> torch.Tensor:
-        """One Adam step of a "bpr" model on a batch with its negatives;
+        """One Adam step on a batch (a "bpr" batch with its negatives);
         returns the loss. Updates ``params`` (the tables by replacement on
-        the CPU, in place on the card)."""
+        the CPU, in place on the card) and a stateful model's state."""
         optimizer.zero_grad(set_to_none=True)
         names = self.model.table_params
         if not names:
-            loss = self.model.loss(params, batch, self.generator)
+            if self.model.stateful:
+                loss, self.model_state = self.model.loss_stateful(
+                    params, self.model_state, batch, self.generator)
+            else:
+                loss = self.model.loss(params, batch, self.generator)
             loss.backward()
             optimizer.step()
             return loss
@@ -198,12 +214,7 @@ class Trainer:
         bs = int(self.cfg.batch_size)
         if self.user_rows:
             for batch in make_epoch_batches(self.generator, self.dataset.num_user, bs):
-                optimizer.zero_grad(set_to_none=True)
-                loss, self.model_state = self.model.loss_stateful(
-                    params, self.model_state, batch, self.generator)
-                loss.backward()
-                optimizer.step()
-                losses.append(loss.detach())
+                losses.append(self.train_step(params, optimizer, batch).detach())
         else:
             for batch in make_edge_batches(self.generator, self.edges, bs):
                 neg = sample_negatives(self.generator, batch.users, self.history,
@@ -218,7 +229,10 @@ class Trainer:
         """(val, test, rank_list): full-catalog top-``rank_topk`` ranking with
         seen items masked, then the metrics of both splits."""
         if self.model.rank_mode == "embeddings":
-            user_emb, item_emb = self.model.embeddings(params)
+            if self.model.stateful:
+                user_emb, item_emb = self.model.embeddings_stateful(params, self.model_state)
+            else:
+                user_emb, item_emb = self.model.embeddings(params)
             rank_list = gene_ranklist(user_emb, item_emb, self.history, self.model.num_user,
                                       self.cfg.rank_topk, self.cfg.eval_user_chunk)
         else:
@@ -249,10 +263,8 @@ class Trainer:
             early_stopping(test_metrics[max(cfg.topk)]["recall"], test_metrics)
             if cfg.export_artifact and early_stopping.counter == 0:
                 # host copies: the optimizer updates params in place
-                self.best_params_host = {k: v.detach().cpu().clone()
-                                         for k, v in params.items()}
-                if self.model_state is not None:
-                    self.best_mstate_host = tuple(t.cpu().clone() for t in self.model_state)
+                self.best_params_host = clone_to(params, "cpu")
+                self.best_mstate_host = clone_to(self.model_state, "cpu")
             if early_stopping.early_stop:
                 print("Early stopping")
                 break

@@ -21,14 +21,23 @@ published width with random weights from ``--seed``:
   the first combo of Model_YAML/NCL.yaml) on the same sports-sized set:
   the CLI's grid run with BPR batches of 1024 edges, whose full-catalog
   contrastive terms go through the streaming logsumexp kernels (forward,
-  dq, dk), then (SGL) the export and serving of its embeddings.
+  dq, dk), then (SGL) the export and serving of its embeddings;
+- DGCF (dim 64, 3 layers, 2 factors, 1 routing iteration, lr 0.01, reg
+  0.01, corDecay 0.01), DCCF (dim 64, 1 layer, 64 intents, lr 1e-3, reg
+  1e-3, ssl_alpha 0.1, ssl_temp 1, cen_reg 1e-3) and MGAT (dim 64, its 256-
+  and 100-wide towers, lr 0.1, reg 0.1), the first combo of each
+  Model_YAML file, on the same sports-sized set: the CLI's grid run with
+  BPR batches of 1024 edges, whose segment sums (and the backward of their
+  gathers) go through the prefix-sum kernel, then (DGCF) the export of its
+  best epoch, routing scores included, and the serving of its embeddings.
 
 Phases, each printing its own lines:
 
 1. device   the card's name and power limit (nvidia-smi); fails without CUDA
 2. build    compile csrc/fused_mha.cu, csrc/fused_mha_bwd.cu,
-            csrc/row_adam.cu and csrc/streaming_lse.cu with nvcc (sm_90a),
-            all at once, and print ptxas's registers and spills
+            csrc/row_adam.cu, csrc/streaming_lse.cu and csrc/prefix_scan.cu
+            with nvcc (sm_90a), all at once, and print ptxas's registers
+            and spills
 3. kernel   fused_mha at keep 1.0 and 0.5 against mha_reference under the
             same mask; its backward against autograd of mha_reference;
             both timed against the plain version at the export chunk and
@@ -91,6 +100,24 @@ Phases, each printing its own lines:
 18. nstep   one NCL training step on a float32 R, kernel path against
             plain path with equal prototypes: the loss and gradients
 19. profile the same split over one NCL training step (bf16 R)
+20. k4      prefix_cumsum against prefix_cumsum_reference and a float64
+            prefix at the path shapes of phases 21-29 ((159101, 32) and
+            (159101, 64) over the train edges; (318202, 256), (318202, 100)
+            and (318202, 64) over the doubled edges), bf16 input, the 1-D
+            seg_sum's (159101,) and small ragged shapes, each bit-identical
+            on a second run; timed against the plain version and
+            torch.cumsum; seg_sum against zeros + index_add_ (printed)
+21. dgcf    DGCF cli.run: 2 epochs with --export_artifact (counts reset
+            just before, read just after: 24 prefix_cumsum launches a step,
+            12 an eval or export forward); the exported embeddings served
+22. gstep   one DGCF step, kernel path against plain path on the same
+            batch, negatives and routing scores: loss, gradients, new S
+23. profile device time by kernel over one DGCF step: K4, gathers and
+            index_add_, GEMMs, reductions; the host's idle share
+24-26.      DCCF: cli.run 1 epoch (8 launches a step, 2 an eval), one step
+            on a float32 R kernel vs plain, the step profile
+27-29.      MGAT: cli.run 1 epoch (18 launches a step, 6 an eval), one step
+            kernel vs plain, the step profile and its peak memory
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -135,7 +162,7 @@ DATASET = "baby"
 # the configuration is the Config defaults (dim_E and feature_embed 64,
 # batch 1024, graph_compute_dtype bfloat16), as bench.py's FREEDOM leg.
 FREEDOM_DATASET, FREEDOM_EPOCHS = "sports", 2
-KERNELS = ("fused_mha", "fused_mha_bwd", "row_adam", "streaming_lse")
+KERNELS = ("fused_mha", "fused_mha_bwd", "row_adam", "streaming_lse", "prefix_scan")
 # fp32 attention over 1034 keys with inputs ~N(0, 1): the kernel's online
 # softmax sums in another order than the reference's; 1e-5 is expected,
 # with or without dropout (both draw the same Philox mask).
@@ -182,6 +209,19 @@ LSE_BWD_REL_TOL = 1e-5
 SSL_EPOCHS = {"SGL": 2, "NCL": 1}
 # full-catalog logsumexp terms per step, and those whose k needs a gradient
 SSL_TERMS = {"SGL": (2, 2), "NCL": (4, 2)}
+SEG_EPOCHS = {"DGCF": 2, "DCCF": 1, "MGAT": 1}
+# One step of a segment-sum model, kernel path against plain path. A
+# segment sum is the difference of two fp32 prefixes, whose error is a few
+# ulp of the running total, not of the segment (the CAVEAT of
+# chaorec_tpu/ops/ell.py:370-381), and DGCF normalizes propagated rows,
+# some of them near zero, in its routing update: two correct summation
+# orders can part by more than the other models' step bounds. Each output
+# (the loss, each gradient, DGCF's new S) is held to the larger of those
+# bounds (S, O(1) entries: 1e-5 absolute) and SPREAD_FACTOR times the
+# spread between the plain path and a path whose prefixes are summed in
+# float64 and rounded once, which measures how far two correct orders of
+# this step's sums drift apart.
+S_STEP_ATOL, SPREAD_FACTOR = 1e-5, 4.0
 ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
 BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
 TRAIN_EPOCHS, TRAIN_BATCH = 2, 1024
@@ -380,16 +420,27 @@ def lse_counts():
     return tuple(f.launches for f in (streaming_lse_fwd, streaming_lse_dq, streaming_lse_dk))
 
 
-def reset_counts():
-    """Every kernel wrapper's launch count to 0."""
+def kernel_wrappers():
+    """Every kernel wrapper, in the order of KERNELS' sources."""
     from chaorec_tpu_torch.ops.fused_attn import fused_mha, fused_mha_bwd
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
     from chaorec_tpu_torch.ops.row_adam import fused_row_adam
     from chaorec_tpu_torch.ops.streaming_lse import (streaming_lse_dk, streaming_lse_dq,
                                                      streaming_lse_fwd)
 
-    for f in (fused_mha, fused_mha_bwd, fused_row_adam, streaming_lse_fwd, streaming_lse_dq,
-              streaming_lse_dk):
+    return (fused_mha, fused_mha_bwd, fused_row_adam, streaming_lse_fwd, streaming_lse_dq,
+            streaming_lse_dk, prefix_cumsum)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    for f in kernel_wrappers():
         f.launches = 0
+
+
+def other_counts(*mine):
+    """The launch counts of every wrapper but ``mine``."""
+    return tuple(f.launches for f in kernel_wrappers() if f not in mine)
 
 
 def lse_bound(b, n, e, kernel):
@@ -828,7 +879,6 @@ def freedom_phases(args, device, fds):
     from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
     from chaorec_tpu_torch.models import build_model
     from chaorec_tpu_torch.models.freedom import FREEDOM
-    from chaorec_tpu_torch.ops.fused_attn import fused_mha, fused_mha_bwd
     from chaorec_tpu_torch.ops.mxu import bdot
     from chaorec_tpu_torch.ops.row_adam import fused_row_adam
     from chaorec_tpu_torch.train.loop import Trainer
@@ -852,7 +902,7 @@ def freedom_phases(args, device, fds):
             logging.getLogger().removeFilter(probe)
         freedom_run_s = time.perf_counter() - t0
         freedom_launches = fused_row_adam.launches
-        attn_launches = (fused_mha.launches, fused_mha_bwd.launches, *lse_counts())
+        others = other_counts(fused_row_adam)
         n_fbatches = math.ceil(fds.num_edges / fcfg.batch_size)
         expected = FREEDOM_EPOCHS * n_fbatches * 2
         for e, (ep, pre_s) in enumerate(zip(probe.epochs, pre.seconds)):
@@ -862,9 +912,9 @@ def freedom_phases(args, device, fds):
         say("freedom", f"cli.run {combo}: {FREEDOM_EPOCHS} epochs x {n_fbatches} batches of "
             f"{fcfg.batch_size} + export: {freedom_run_s:.3f} s wall; fused_row_adam launches "
             f"{freedom_launches} (expected {expected} = {FREEDOM_EPOCHS} x {n_fbatches} x 2 "
-            f"tables), attention and logsumexp launches {attn_launches} (expected none)")
-        check(freedom_launches == expected and attn_launches == (0,) * 5,
-              f"FREEDOM launched {freedom_launches} and {attn_launches}")
+            f"tables), other kernels {others} (expected none)")
+        check(freedom_launches == expected and not any(others),
+              f"FREEDOM launched {freedom_launches} and {others}")
         check(len(probe.epochs) == len(pre.seconds) == FREEDOM_EPOCHS,
               f"{len(probe.epochs)} epochs logged, {len(pre.seconds)} pre_epochs")
         check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
@@ -997,8 +1047,8 @@ def ssl_phases(args, device, fds) -> dict:
     from chaorec_tpu_torch.config import Config
     from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
     from chaorec_tpu_torch.models import build_model
-    from chaorec_tpu_torch.ops.fused_attn import fused_mha, fused_mha_bwd
-    from chaorec_tpu_torch.ops.row_adam import fused_row_adam
+    from chaorec_tpu_torch.ops.streaming_lse import (streaming_lse_dk, streaming_lse_dq,
+                                                     streaming_lse_fwd)
     from chaorec_tpu_torch.train.loop import Trainer
 
     launches = {}
@@ -1022,7 +1072,7 @@ def ssl_phases(args, device, fds) -> dict:
                 logging.getLogger().removeFilter(probe)
             run_s = time.perf_counter() - t0
             launches[name] = lse_counts()
-            others = (fused_mha.launches, fused_mha_bwd.launches, fused_row_adam.launches)
+            others = other_counts(streaming_lse_fwd, streaming_lse_dq, streaming_lse_dk)
             n_batches = math.ceil(fds.num_edges / cfg.batch_size)
             terms, with_k_grad = SSL_TERMS[name]
             expected = tuple(epochs * n_batches * t for t in (terms, terms, with_k_grad))
@@ -1035,7 +1085,7 @@ def ssl_phases(args, device, fds) -> dict:
                 f"streaming_lse fwd/dq/dk launches {launches[name]} (expected {expected} = "
                 f"{epochs} x {n_batches} x {terms} terms, {with_k_grad} of them with a k "
                 f"gradient), other kernels {others} (expected none)")
-            check(launches[name] == expected and others == (0, 0, 0),
+            check(launches[name] == expected and not any(others),
                   f"{name} launched {launches[name]} and {others}")
             check(len(probe.epochs) == epochs, f"{len(probe.epochs)} epochs logged")
             check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
@@ -1124,6 +1174,296 @@ def ssl_phases(args, device, fds) -> dict:
                     "gathers, scatters and index_add_ (views, row gathers, k-means)": (
                         "index", "scatter", "gather"),
                     "reductions (argmax, norms, sums)": ("reduce_kernel",)})
+        del params, opt, model, trainer, init
+        torch.cuda.empty_cache()
+    return launches
+
+
+def scan_atol(exact: torch.Tensor, m: int, sequential: bool = False) -> float:
+    """The prefix error model of chaorec_tpu/ops/ell.py:370-381: 4 ulp of
+    the largest absolute prefix, times ceil(log2 M) (at least 1). With
+    ``sequential``, plus ulp x sqrt(M): torch.cumsum along dim 0 on the card
+    adds a column's rows one after another, so its error is a random walk
+    of M roundings (the kernel's chains are a few hundred adds long)."""
+    top = exact.abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 23) if top > 0 else 0.0
+    return ulp * (4 * max(1, math.ceil(math.log2(m))) + (math.sqrt(m) if sequential else 0))
+
+
+def scan_shapes(fds) -> dict:
+    """K4's (M, D) on the main paths over the sports-sized set: DGCF's
+    factor chunks (dim_E / n_factors = 32) and DCCF's rows (dim_E 64) over
+    the train edges, MGAT's conv widths (256 visual, 100 textual, then 64)
+    over the doubled edges."""
+    e = fds.num_edges
+    return {"dgcf": (e, 32), "dccf": (e, 64), "mgat_v": (2 * e, 256), "mgat_t": (2 * e, 100),
+            "mgat": (2 * e, 64)}
+
+
+def scan_phase(gen, device, fds) -> dict:
+    """K4 against prefix_cumsum_reference and a float64 prefix at every
+    path shape, the 1-D seg_sum's and small ragged ones, with identical
+    bits on a second run; its times at the path shapes; seg_sum (gather,
+    K4, pointer difference) against an index_add_ segment sum at DGCF's
+    and MGAT's shapes. Returns per path shape {max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by} and the seg_sum times."""
+    from chaorec_tpu_torch.ops.ell import build_segment_transpose, seg_sum
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum, prefix_cumsum_reference
+
+    paths = scan_shapes(fds)
+    e = fds.num_edges
+    extra = {"1d": (e, None), "one_row": (1, 1), "ragged_7x3": (7, 3),
+             "ragged_513x100": (513, 100), "two_tiles": (1300, 257)}
+    results = {}
+    for name, (m, d) in {**paths, **extra}.items():
+        shape = (m,) if d is None else (m, d)
+        for dtype in (torch.float32, torch.bfloat16) if name == "dgcf" else (torch.float32,):
+            x = torch.randn(shape, generator=gen, device=device).to(dtype)
+            before = prefix_cumsum.launches
+            got = prefix_cumsum(x)
+            again = prefix_cumsum(x)
+            torch.cuda.synchronize()
+            check(prefix_cumsum.launches == before + 2, f"prefix_cumsum {shape} did not launch")
+            exact = torch.cumsum(x.double(), 0)
+            plain = prefix_cumsum_reference(x)
+            atol, plain_atol = scan_atol(exact, m), scan_atol(exact, m, sequential=True)
+            err = (got.double() - exact).abs().max().item()
+            err_plain = (got - plain).abs().max().item()
+            plain_exact = (plain.double() - exact).abs().max().item()
+            same = torch.equal(got, again)
+            say("k4", f"prefix_cumsum {shape} {str(dtype)[6:]}: max abs err vs float64 {err:.3e} "
+                f"(bound {atol:.3e} = 4 ulp of max |prefix| x ceil(log2 M)), vs plain "
+                f"{err_plain:.3e} (bound {plain_atol:.3e}, + ulp x sqrt(M); plain vs float64 "
+                f"{plain_exact:.3e}); second run bit-identical: {same}")
+            check(got.dtype == torch.float32 and got.shape == x.shape, f"{shape}: {got.shape}")
+            check(err <= atol and err_plain <= plain_atol and same,
+                  f"prefix_cumsum {shape} disagrees")
+            if dtype == torch.float32:
+                results[name] = dict(max_abs_err=err_plain)
+            del x, got, again, exact, plain
+
+    for name, (m, d) in paths.items():
+        x = torch.randn((m, d), generator=gen, device=device)
+        out = torch.empty_like(x)
+        bms, by = bound_ms(m * d, 8 * m * d)
+        results[name].update(ms=cuda_ms(lambda: prefix_cumsum(x, out=out), 20),
+                             plain_ms=cuda_ms(lambda: prefix_cumsum_reference(x), 5),
+                             library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5),
+                             bound_ms=bms, bound_by=by)
+        r = results[name]
+        say("k4", f"prefix_cumsum ({m}, {d}) {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (torch.cumsum) {r['library_ms']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}: 8 M D bytes over 3.35 TB/s), {100 * bms / r['ms']:.1f}% of it")
+        del x, out
+
+    # seg_sum as the models call it, against the atomics route, on the
+    # segment ids of the path (DGCF's users over the train edges, MGAT's
+    # destination nodes over the doubled edges); a printed yardstick only
+    users = torch.from_numpy(fds.train_edges[:, 0]).to(device, torch.int64)
+    items = torch.from_numpy(fds.train_edges[:, 1]).to(device, torch.int64) + fds.num_user
+    dst = torch.cat([items, users])
+    for name, idx, n_seg in (("dgcf", users, fds.num_user), ("mgat_v", dst, fds.num_user
+                             + fds.num_item), ("mgat", dst, fds.num_user + fds.num_item)):
+        m, d = paths[name]
+        perm, ptr = build_segment_transpose(idx, n_seg)
+        vals = torch.randn((m, d), generator=gen, device=device)
+        ours = seg_sum(vals, idx, perm, ptr)
+        theirs = torch.zeros((n_seg, d), device=device).index_add_(0, idx, vals)
+        diff = (ours - theirs).abs().max().item()
+        seg_ms = cuda_ms(lambda: seg_sum(vals, idx, perm, ptr), 20)
+        add_ms = cuda_ms(lambda: torch.zeros((n_seg, d), device=device).index_add_(0, idx, vals), 20)
+        results[name].update(seg_sum_ms=seg_ms, index_add_ms=add_ms)
+        say("k4", f"segment sum of ({m}, {d}) into {n_seg} segments ({name}): seg_sum (permute "
+            f"gather, K4, pointer difference) {seg_ms:.4f} ms, zeros + index_add_ {add_ms:.4f} "
+            f"ms; max abs diff {diff:.3e}")
+        del perm, ptr, vals, ours, theirs
+    torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def plain_prefix_scan(float64: bool = False):
+    """The segment sums' prefix through prefix_cumsum_reference (the plain
+    path) instead of the kernel; with ``float64``, summed in float64 and
+    rounded once. For the comparisons only."""
+    from chaorec_tpu_torch.ops import ell
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum_reference
+
+    def plain(v, out=None):
+        ref = torch.cumsum(v.double(), 0).float() if float64 else prefix_cumsum_reference(v)
+        return ref if out is None else out.copy_(ref)
+
+    kernel = ell.prefix_cumsum
+    ell.prefix_cumsum = plain
+    try:
+        yield
+    finally:
+        ell.prefix_cumsum = kernel
+
+
+def scan_launches(cfg) -> tuple:
+    """(K4 launches of one training step, of one forward without gradient)
+    of ``cfg.Model`` under ``cfg``, read off the model's code: each seg_sum
+    forward launches once, and each seg_gather whose input needs a gradient
+    launches once in the backward. DGCF: 2 seg_sums and 2 seg_gathers per
+    factor, iteration and layer. DCCF: per layer, 2 adaptive views of 1
+    seg_sum and 3 seg_gathers. MGAT: per GAT round (3 a tower, 2 towers), 1
+    seg_sum and 2 seg_gathers."""
+    if cfg.Model == "DGCF":
+        sums = 2 * cfg.n_factors * cfg.n_iterations * cfg.n_layers
+        return 2 * sums, sums
+    if cfg.Model == "DCCF":
+        return 8 * cfg.n_layers, 2 * cfg.n_layers
+    if cfg.Model == "MGAT":
+        return 18, 6
+    raise ValueError(cfg.Model)
+
+
+def seg_phases(args, device, fds) -> dict:
+    """Phases 21-29: DGCF's, DCCF's and MGAT's CLI runs on sports through
+    K4, DGCF's export and serving, one step of each kernel vs plain path,
+    and each one's step profile. Returns each model's K4 launches of its
+    CLI run."""
+    from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.config import Config
+    from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    launches = {}
+    for name in ("DGCF", "DCCF", "MGAT"):
+        phase = name.lower()
+        # 21 / 24 / 27. the CLI's grid run, first combo ---------------------
+        combo, grid = first_combo(name)
+        epochs = SEG_EPOCHS[name]
+        with tempfile.TemporaryDirectory() as tmp:
+            art = os.path.join(tmp, f"{name}.npz") if name == "DGCF" else ""
+            cfg = Config(Model=name, data_path=FREEDOM_DATASET, seed=args.seed, num_epoch=epochs,
+                         log_dir=args.out_dir, export_artifact=art)
+            probe = EpochProbe()
+            logging.getLogger().addFilter(probe)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                best = cli.run(cfg, grid, fds, device)
+                torch.cuda.synchronize()
+            finally:
+                logging.getLogger().removeFilter(probe)
+            run_s = time.perf_counter() - t0
+            launches[name] = prefix_cumsum.launches
+            others = other_counts(prefix_cumsum)
+            n_batches = math.ceil(fds.num_edges / cfg.batch_size)
+            per_step, per_eval = scan_launches(cfg.replace(**combo))
+            expected = epochs * (n_batches * per_step + per_eval) + (per_eval if art else 0)
+            for e, ep in enumerate(probe.epochs):
+                say(phase, f"epoch {e + 1}: loss {ep['loss']:.5f}, wall {ep['wall_s']:.3f} s "
+                    f"(training {ep['train_s']:.3f} s, eval {ep['eval_s']:.3f} s), peak device "
+                    f"memory {ep['peak_gib']:.2f} GiB")
+            say(phase, f"cli.run {combo}: {epochs} epochs x {n_batches} batches of "
+                f"{cfg.batch_size}{' + export' if art else ''}: {run_s:.3f} s wall; prefix_cumsum "
+                f"launches {launches[name]} (expected {expected} = {epochs} x ({n_batches} x "
+                f"{per_step} + {per_eval} eval){f' + {per_eval} export' if art else ''}), other "
+                f"kernels {others} (expected none)")
+            check(launches[name] == expected and not any(others),
+                  f"{name} launched {launches[name]} and {others}")
+            check(len(probe.epochs) == epochs, f"{len(probe.epochs)} epochs logged")
+            check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
+            check(sorted(best) == [5, 10, 20] and all(
+                math.isfinite(v) for m in best.values() for v in m.values()), f"best {best}")
+            say(phase, "best test metrics: " + "; ".join(
+                f"@{k} recall {m['recall']:.5f} ndcg {m['ndcg']:.5f}" for k, m in best.items()))
+            if art:
+                check_embeddings_serving(phase, art, fds, device, name)
+        torch.cuda.empty_cache()
+
+        # 22 / 25 / 28. one step, kernel path against plain path -------------
+        # On a float32 R (DCCF's propagation; see the SGL step's note).
+        step_phase = {"DGCF": "gstep", "DCCF": "cstep", "MGAT": "mstep"}[name]
+        scfg = cfg.replace(**combo, export_artifact="")
+
+        def setup(graph_dtype):
+            model = build_model(scfg.replace(graph_compute_dtype=graph_dtype), fds, device)
+            trainer = Trainer(model, fds, scfg)
+            init = trainer.init_params()
+            batch = make_edge_batches(trainer.generator, trainer.edges, scfg.batch_size)[0]
+            batch = dataclasses.replace(batch, neg_items=sample_negatives(
+                trainer.generator, batch.users, trainer.history, model.num_item,
+                scfg.neg_candidates))
+            return model, trainer, init, batch
+
+        model, trainer, init, batch = setup("float32")
+        state = None
+        if model.stateful:  # routing scores away from the uniform start
+            state = trainer.model_state + 0.5 * torch.randn(
+                trainer.model_state.shape, generator=trainer.generator, device=device)
+
+        def one_step():
+            leaves = {n: t.detach().clone().requires_grad_() for n, t in init.items()}
+            if state is None:
+                loss, new_state = model.loss(leaves, batch, trainer.generator), None
+            else:
+                loss, new_state = model.loss_stateful(leaves, state, batch, trainer.generator)
+            loss.backward()
+            return loss.item(), {n: t.grad for n, t in leaves.items()}, new_state
+
+        before = prefix_cumsum.launches
+        kernel = one_step()
+        check(prefix_cumsum.launches == before + per_step,
+              f"the kernel step launched {prefix_cumsum.launches - before}, not {per_step}")
+        with plain_prefix_scan():
+            plain = one_step()
+        with plain_prefix_scan(float64=True):
+            exact = one_step()
+        check(prefix_cumsum.launches == before + per_step, "the plain steps launched")
+
+        def outputs(step):
+            loss, grads, new_state = step
+            return {"loss": torch.tensor(loss), **grads,
+                    **({} if new_state is None else {"S": new_state})}
+
+        k_out, p_out, e_out = (outputs(s) for s in (kernel, plain, exact))
+        scale = max(g.abs().max().item() for n, g in p_out.items() if n not in ("loss", "S"))
+        rows = []
+        for n, want in p_out.items():
+            base = (STEP_LOSS_RTOL * abs(want.item()) if n == "loss" else S_STEP_ATOL if n == "S"
+                    else STEP_RTOL * want.abs().max().item() + STEP_ATOL * scale)
+            diff = (k_out[n] - want).abs().max().item()
+            spread = (want - e_out[n]).abs().max().item()
+            rows.append((diff / max(base, SPREAD_FACTOR * spread), n, diff, base, spread))
+        worst = max(rows)
+        say(step_phase, f"one {name} step of {batch.users.shape[0]} edges on a float32 R, kernel "
+            f"vs plain prefix sum on the same batch and negatives"
+            f"{' and S' if state is not None else ''}: K4 launches {per_step}; loss "
+            f"{kernel[0]:.7f} vs {plain[0]:.7f}; worst output {worst[1]} at {worst[0]:.3f} of its "
+            f"bound (max abs diff {worst[2]:.3e}; the larger of {worst[3]:.3e} and "
+            f"{SPREAD_FACTOR:g} x the plain path's spread from float64 prefixes {worst[4]:.3e})"
+            + "".join(f"; {n} diff {d:.2e} spread {sp:.2e}" for _, n, d, _, sp in rows
+                      if n in ("loss", "S")))
+        check(worst[0] <= 1.0, f"{name} step disagrees")
+        del kernel, plain, exact, k_out, p_out, e_out, model, trainer, init
+        torch.cuda.empty_cache()
+
+        # 23 / 26 / 29. profile: where one step's device time goes -----------
+        model, trainer, init, batch = setup(scfg.graph_compute_dtype)
+        params = {n: t.detach().clone().requires_grad_() for n, t in init.items()}
+        opt = trainer.make_optimizer(params)
+        torch.cuda.reset_peak_memory_stats()
+        device_profile(
+            "profile", f"one {name} training step of {scfg.batch_size} edges ({per_step} K4 "
+            "launches, forward and backward, Adam)",
+            lambda: trainer.train_step(params, opt, batch),
+            os.path.join(args.out_dir, f"chip_smoke_{phase}_step_profile.txt"),
+            groups={"K4 (prefix_scan: group sums, carries, scans)": (
+                        "group_sums", "carry_kernel", "scan_kernel"),
+                    "gathers, scatters and index_add_ (seg_gather, permute gathers, pointer "
+                    "differences, row gathers and their backward)": (
+                        "index", "scatter", "gather"),
+                    "GEMMs": ("gemm", "nvjet", "cutlass", "xmma"),
+                    "reductions (norms, sums, softmax)": ("reduce_kernel", "softmax")})
+        say("profile", f"{name} step peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         del params, opt, model, trainer, init
         torch.cuda.empty_cache()
     return launches
@@ -1462,11 +1802,13 @@ def main(argv=None) -> int:
     fds = sports_dataset(args)
     freedom_launches, bf16_launches = freedom_phases(args, device, fds)
     ssl_launches = ssl_phases(args, device, fds)
+    k4 = scan_phase(gen, device, fds)
+    seg_launches = seg_phases(args, device, fds)
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
-    # (the CF_Diff export of phase 4, the CLI runs of phases 7, 10 and 14,
-    # the bf16 epoch of phase 13).
+    # (the CF_Diff export of phase 4, the CLI runs of phases 7, 10, 14, 21,
+    # 24 and 27, the bf16 epoch of phase 13).
     fwd = dict(route="cuda", source="chaorec_tpu_torch/csrc/fused_mha.cu",
                replaces="chaorec_tpu/ops/pallas_attn.py:65")
     no_library = "no PyTorch call draws this Philox dropout mask"
@@ -1515,6 +1857,17 @@ def main(argv=None) -> int:
                         "launch is the kernel and its combine pass; library: no single "
                         "PyTorch call computes this: torch.mm and torch.logsumexp"
                         f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
+    seg_names = {"dgcf": "DGCF", "dccf": "DCCF", "mgat_v": "MGAT", "mgat_t": "MGAT",
+                 "mgat": "MGAT"}
+    for name, (m, d) in scan_shapes(fds).items():
+        model = seg_names[name]
+        entries.append({
+            "name": f"prefix_scan@{name}", "route": "cuda",
+            "source": "chaorec_tpu_torch/csrc/prefix_scan.cu",
+            "replaces": "chaorec_tpu/ops/pallas_scan.py:49", "shape": [m, d],
+            "launches": seg_launches[model], **k4[name],
+            "note": f"launches: the {model} CLI run's, over all its shapes (one launch is the "
+                    "kernel's three passes); library: torch.cumsum, one call"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
