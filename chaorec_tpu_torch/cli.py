@@ -13,7 +13,11 @@ The run is on the first CUDA card unless ``--device cpu`` (or ``device=
 run; without a card, a run that did not ask for the CPU raises before any
 work. The data is loaded with both modality feature tables, as the JAX
 CLI loads it. The JAX CLI's checkpoint grid cursor comes with
-checkpointing.
+checkpointing: until then the trainer refuses ``--checkpoint_dir``,
+``--checkpoint_every``, ``--mesh_shape`` and ``--profile_dir``.
+``--max_dispatch_batches`` and ``--eval_pipeline`` parse and are ignored:
+they tune the JAX trainer's chunked dispatch and eval pipeline for the
+TPU, which ROADMAP lists under "Do not port".
 """
 
 from __future__ import annotations

@@ -52,4 +52,40 @@ __device__ __forceinline__ unsigned keep_bits4(uint32_t j4, uint32_t i,
          (r.z < thresh ? 4u : 0u) | (r.w < thresh ? 8u : 0u);
 }
 
+// The ten round keys of a seed, for a kernel that draws many words from
+// one seed: philox4x32_10_keyed then spends no instruction on the key
+// schedule, and gives the words of philox4x32_10 bit for bit.
+struct PhiloxKeys {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ PhiloxKeys philox_keys(uint64_t seed) {
+  PhiloxKeys keys;
+  uint32_t k0 = static_cast<uint32_t>(seed), k1 = static_cast<uint32_t>(seed >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    keys.k0[r] = k0;
+    keys.k1[r] = k1;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return keys;
+}
+
+__device__ __forceinline__ Philox4 philox4x32_10_keyed(uint32_t c0, uint32_t c1,
+                                                       uint32_t c2, uint32_t c3,
+                                                       const PhiloxKeys& keys) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
+    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
+    c0 = hi1 ^ c1 ^ keys.k0[r];
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ keys.k1[r];
+    c3 = lo0;
+  }
+  return {c0, c1, c2, c3};
+}
+
 }  // namespace chaorec

@@ -14,10 +14,16 @@ drawn from the trainer's ``torch.Generator`` on its device.
   rejection loop draws them (dataload.py:74-84); the two packages draw
   different streams, so they agree in distribution only.
 
-The JAX package pads the last batch to a full one with weight-0 rows so
-that every batch has one static shape. Here the last batch is short
-instead: every loss is a weighted mean over its rows, so a short batch of
-weight-1 rows gives the same loss as the padded one.
+The last batch is padded to a full one as the JAX package pads it
+(``pack_batches``): real rows weigh 1, and pad rows repeat row 0 of the
+unshuffled table with weight 0. A short batch would not give the same
+results, because not every loss is a weighted mean over its rows:
+
+- DCCF's in-batch InfoNCE (``models/dccf.py:_pair_cl``) puts every batch
+  row, pad rows included, into each logsumexp;
+- DGCF's ``distance_correlation`` over [u; pos] takes no weights;
+- FREEDOM's ``table_rows`` puts the pad rows' items into the row-sparse
+  Adam's row set, so those rows move by their decayed moments.
 """
 
 from __future__ import annotations
@@ -33,26 +39,41 @@ from chaorec_tpu_torch.models.base import Batch
 _BCAST_MAX_H = 4096
 
 
+def pack_batches(perm: torch.Tensor, rows: torch.Tensor, batch_size: int) -> List[Batch]:
+    """``rows[perm]`` cut into full batches of ``batch_size``, as
+    ``chaorec_tpu/data/sampling.py:make_epoch_batches`` packs them: the last
+    batch is padded by repeating ``rows[0]`` with weight 0, every real row
+    has weight 1, and ``index`` is the batch's position. ``rows`` is (N, 2)
+    [user, item] edges, giving ``users`` and ``pos_items``, or (N,) user ids."""
+    n = perm.shape[0]
+    n_batches = -(-n // batch_size)
+    pad = perm.new_zeros(n_batches * batch_size - n)
+    picked = rows[torch.cat([perm, pad])].split(batch_size)
+    weights = (torch.arange(n_batches * batch_size, device=perm.device) < n).float()
+    if rows.dim() == 1:
+        return [Batch(users, w, index=b)
+                for b, (users, w) in enumerate(zip(picked, weights.split(batch_size)))]
+    return [Batch(e[:, 0], w, pos_items=e[:, 1], index=b)
+            for b, (e, w) in enumerate(zip(picked, weights.split(batch_size)))]
+
+
 def make_epoch_batches(generator: torch.Generator, num_users: int,
                        batch_size: int) -> List[Batch]:
-    """A permutation of ``range(num_users)`` cut into batches of
-    ``batch_size`` users (the last one shorter when it does not divide),
-    each with weight 1 per row, on the generator's device."""
+    """A permutation of ``range(num_users)`` packed into full batches of
+    ``batch_size`` users (``pack_batches``: the last one padded with user 0
+    at weight 0), on the generator's device."""
     perm = torch.randperm(num_users, generator=generator, device=generator.device)
-    return [Batch(users, torch.ones(users.shape[0], device=users.device))
-            for users in perm.split(batch_size)]
+    return pack_batches(perm, torch.arange(num_users, device=perm.device), batch_size)
 
 
 def make_edge_batches(generator: torch.Generator, edges: torch.Tensor,
                       batch_size: int) -> List[Batch]:
-    """The rows of ``edges`` (E, 2) [user, item] in a random order, cut
-    into batches of ``batch_size`` (the last one shorter), with weight 1
-    per row and ``index`` the batch's position; negatives are drawn per
-    step (``sample_negatives``)."""
+    """The rows of ``edges`` (E, 2) [user, item] in a random order, packed
+    into full batches of ``batch_size`` (``pack_batches``: the last one
+    padded with edge 0 at weight 0); negatives are drawn per step
+    (``sample_negatives``), for pad rows as for any row."""
     perm = torch.randperm(edges.shape[0], generator=generator, device=generator.device)
-    return [Batch(edges[idx, 0], torch.ones(idx.shape[0], device=idx.device),
-                  pos_items=edges[idx, 1], index=b)
-            for b, idx in enumerate(perm.split(batch_size))]
+    return pack_batches(perm, edges, batch_size)
 
 
 def _in_sorted(history_rows: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,9 @@ its compile sharing through injected hyperparameters and its one-epoch-deep
 eval pipeline exist for the TPU and its remote link. The rebuild-gated
 branches (``epoch0_params``, ``frozen_state_epoch``), checkpointing, mesh
 training and the profiler hook come with the models and slices that need
-them: the trainer refuses a model that asks for one.
+them: the trainer refuses a model that asks for one, and refuses
+``--checkpoint_dir``, ``--checkpoint_every``, ``--mesh_shape`` and
+``--profile_dir`` (``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -69,6 +71,14 @@ from chaorec_tpu_torch.params import clone_to
 
 ADAM_BETAS = (0.9, 0.999)  # torch.optim.Adam defaults, as the reference uses
 ADAM_EPS = 1e-8
+# Flags the JAX trainer reads and this one does not yet: the trainer refuses
+# them rather than run without them. Each names the ROADMAP item that ports it.
+UNPORTED_FLAGS = {
+    "checkpoint_dir": "Queue 1 item 8 (checkpoint and grid cursor)",
+    "checkpoint_every": "Queue 1 item 8 (checkpoint and grid cursor)",
+    "mesh_shape": "Queue 1 item 9 (multi-device)",
+    "profile_dir": "Queue 1 items 8-9 (the profiler hook comes with them)",
+}
 
 
 class EarlyStopping:
@@ -139,6 +149,9 @@ class Trainer:
             if getattr(model, gate, None):
                 raise NotImplementedError(f"{model.name}: the rebuild-gated branch "
                                           f"({gate}) is not ported; it comes with its models")
+        for flag, item in UNPORTED_FLAGS.items():
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"--{flag} is not ported; ROADMAP {item} ports it")
         self.model = model
         self.dataset = dataset
         self.cfg = cfg

@@ -39,7 +39,10 @@ Phases, each printing its own lines:
             with nvcc (sm_90a), all at once, and print ptxas's registers
             and spills
 3. kernel   fused_mha at keep 1.0 and 0.5 against mha_reference under the
-            same mask; its backward against autograd of mha_reference;
+            same mask (also at the serving batch, B = 1, and at 5000
+            keys, where the forward walks K and V in tiles; at keep 1.0
+            each also timed against scaled_dot_product_attention); its
+            backward against autograd of mha_reference;
             both timed against the plain version at the export chunk and
             the training batch shapes, and held to it at both (the
             backward at the training batch, slice by slice);
@@ -52,8 +55,8 @@ Phases, each printing its own lines:
             fp32 and bf16;
             streaming_logsumexp's forward, dq and dk kernels against the
             plain version and its autograd at SGL's user and item sides
-            (1024 x 28940 and 1024 x 15207, E 64, temperature 0.1), the
-            last batch (381 x 15207), NCL's prototypes (1024 x 200 at
+            (1024 x 28940 and 1024 x 15207, E 64, temperature 0.1), a
+            ragged batch (381 x 15207), NCL's prototypes (1024 x 200 at
             temperature 0.01, k without gradient: no dk launch) and a
             small ragged case (7 x 513); timed at the two SGL shapes
             against the plain version and the library route
@@ -191,8 +194,9 @@ ROW_ADAM_LR = 1e-3  # FREEDOM's learning rate
 # The card's published peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 # The streaming logsumexp (B, N, E, temperature, k needs a gradient): SGL's
-# user and item sides at batch 1024 on sports, an epoch's last batch
-# (159,101 edges = 155 x 1024 + 381), NCL's prototype term (200 centroids,
+# user and item sides at batch 1024 on sports, a ragged batch of 381 rows
+# (the real rows of an epoch's last batch, 159,101 edges = 155 x 1024 +
+# 381; the trainer pads that batch to 1024 as the JAX package does), NCL's prototype term (200 centroids,
 # N below one 512-row TPU tile, no gradient), and a small ragged case. q is
 # unit rows over the temperature, k unit rows, as the models give them.
 LSE_SHAPES = ((1024, 28940, 64, 0.1, True), (1024, 15207, 64, 0.1, True),
@@ -222,7 +226,10 @@ SEG_EPOCHS = {"DGCF": 2, "DCCF": 1, "MGAT": 1}
 # float64 and rounded once, which measures how far two correct orders of
 # this step's sums drift apart.
 S_STEP_ATOL, SPREAD_FACTOR = 1e-5, 4.0
-ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
+# The forward is also held and timed at CF_Diff's serving batch (B = 1) and
+# at 5000 keys, past the 4096 that csrc/fused_mha.cu stages at once.
+ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 1034, 1034, 4),
+               (1, 4, 1034, 5000, 4))
 BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
 TRAIN_EPOCHS, TRAIN_BATCH = 2, 1024
 
@@ -1533,8 +1540,14 @@ def main(argv=None) -> int:
             check(err <= ATTN_TOL, f"fused_mha {shape} keep {keep}: max abs err {err} > {ATTN_TOL}")
             ms = cuda_ms(lambda: fused_mha(q, k, v, seed_t, keep))
             plain_ms = cuda_ms(lambda: mha_reference(q, k, v, seed_t, keep), 3)
+            library = ""
+            if keep == 1.0:  # one library call computes the same function only without dropout
+                lib_ms, lib_out = sdpa_ms(q, k, v)
+                bms, by = attn_bound(shape)
+                library = (f", scaled_dot_product_attention {lib_ms:.4f} ms (max abs diff from the "
+                           f"kernel {(lib_out - got).abs().max().item():.3e}), bound {bms:.4f} ms ({by})")
             say("kernel", f"fwd {shape} keep {keep}: max_abs_err {err:.3e} (bound {ATTN_TOL:g}), "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{library}")
     b, h, lq, lk, _ = BWD_SHAPES[0]
     kept = dropout_mask(seed_t, b * h, lq, lk, 0.5, device=device).float().mean().item()
     say("kernel", f"dropout keep 0.5: kept share {kept:.6f} of {b * h * lq * lk} weights "

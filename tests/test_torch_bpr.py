@@ -147,11 +147,14 @@ def test_edge_batches_hold_every_edge_once():
     rs = np.random.default_rng(5)
     edges = _t(np.stack([rs.integers(0, 30, 1000), rs.integers(0, 20, 1000)], 1))
     batches = tsampling.make_edge_batches(torch.Generator().manual_seed(2), edges, 128)
-    assert [b.users.shape[0] for b in batches] == [128] * 7 + [104]
+    assert [b.users.shape[0] for b in batches] == [128] * 8  # every batch is full
     assert [b.index for b in batches] == list(range(8))
     got = torch.cat([torch.stack([b.users, b.pos_items], 1) for b in batches])
-    assert sorted(map(tuple, got.tolist())) == sorted(map(tuple, edges.tolist()))
-    assert all(torch.equal(b.weights, torch.ones(b.users.shape[0])) for b in batches)
+    weights = torch.cat([b.weights for b in batches])
+    # every real row once with weight 1; the 24 pad rows repeat edge 0 with weight 0
+    assert torch.equal(weights, (torch.arange(1024) < 1000).float())
+    assert sorted(map(tuple, got[:1000].tolist())) == sorted(map(tuple, edges.tolist()))
+    assert torch.equal(got[1000:], edges[:1].expand(24, 2))
     again = tsampling.make_edge_batches(torch.Generator().manual_seed(3), edges, 128)
     assert not torch.equal(again[0].users, batches[0].users)
 

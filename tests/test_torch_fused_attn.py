@@ -271,3 +271,35 @@ def test_cuda_backward_matches_autograd_of_reference(shape, keep):
     for name, a, b in zip("qkv", got, want):
         err = (a - b).abs().max().item() / b.abs().max().item()
         assert err <= 1e-5, (name, err)
+
+
+# B = 1 (CF_Diff's serving batch; 1 query row a thread) at ragged Lq and
+# Lk, 4100 keys passing the 4096 the forward stages at once so its tile
+# loop runs; and 32 users, where 128 groups of 11 warps fill 8 warps on
+# each of up to 176 SMs and 11 x 96 rows are within 5% of Lq, so the
+# forward runs 3 rows a thread (as at CF_Diff's training and export
+# batches) over a ragged last warp.
+RAGGED_CARD = ([(1, 4, lq, lk, 4) for lq in (1, 129, 257, 1034)
+                for lk in (1, 3, 5, 513, 1034, 4100)]
+               + [(32, 4, 1034, 5, 4), (32, 4, 1010, 1034, 4), (32, 4, 1034, 4100, 4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+@pytest.mark.parametrize("shape", RAGGED_CARD)
+def test_cuda_forward_and_lse_at_ragged_shapes(shape, keep):
+    """out within 1e-5 of mha_reference under the same mask, and lse within
+    1e-5 of the plain log-sum-exp of the scaled scores (|lse| is below 12
+    here, so 1e-5 is ~100 fp32 ulps of it; the backward reads it)."""
+    _on_card()
+    q, k, v = (torch.from_numpy(t).cuda() for t in _qkv(shape, seed=shape[2] + shape[3]))
+    seed = torch.tensor([2024], device="cuda")
+    seed_t = seed if keep < 1.0 else None
+    before = fused_attn.fused_mha.launches
+    out, lse = fused_attn._launch_fwd(q, k, v, seed_t, keep, with_lse=True)
+    torch.cuda.synchronize()
+    assert fused_attn.fused_mha.launches == before + 1
+    torch.testing.assert_close(out, fused_attn.mha_reference(q, k, v, seed, keep),
+                               rtol=0, atol=1e-5)
+    want = torch.logsumexp(torch.einsum("bhqd,bhkd->bhqk", q, k) / 2.0, dim=-1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)

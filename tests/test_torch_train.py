@@ -42,10 +42,14 @@ def test_epoch_batches_hold_every_user_once(num_users, batch_size):
     batches = make_epoch_batches(gen, num_users, batch_size)
     sizes = [b.users.shape[0] for b in batches]
     assert len(batches) == -(-num_users // batch_size)
-    assert sizes[:-1] == [batch_size] * (len(batches) - 1) and 0 < sizes[-1] <= batch_size
+    assert sizes == [batch_size] * len(batches)  # every batch is full
+    assert [b.index for b in batches] == list(range(len(batches)))
     users = torch.cat([b.users for b in batches])
-    assert users.dtype == torch.int64 and sorted(users.tolist()) == list(range(num_users))
-    assert all(torch.equal(b.weights, torch.ones(b.users.shape[0])) for b in batches)
+    weights = torch.cat([b.weights for b in batches])
+    # every real row once with weight 1; pad rows repeat user 0 with weight 0
+    assert torch.equal(weights, (torch.arange(users.shape[0]) < num_users).float())
+    assert users.dtype == torch.int64 and sorted(users[:num_users].tolist()) == list(range(num_users))
+    assert not users[num_users:].any()
     again = torch.cat([b.users for b in make_epoch_batches(gen, num_users, batch_size)])
     if num_users > 1:
         assert not torch.equal(users, again), "the next epoch reshuffles"
