@@ -31,10 +31,10 @@
 //   rows; a group's ceil(Lq / 32R) warps are split evenly over its blocks
 //   of up to kWarps warps, and a warp whose rows all lie past Lq skips the
 //   compute, so at most 32 R - 1 rows are computed in vain. The host picks
-//   R from the grid (pick_shape): 3 where that wastes at most 5% of the
-//   rows and still gives each SM enough warps (CF_Diff's training and
-//   export batches: 1056 rows for 1034), else 1 (its serving batch of one
-//   user, 4 groups).
+//   R from the grid (attn_rows.cuh:pick_row_shape, which the backward's dq
+//   kernel shares): 3 where that wastes at most 5% of the rows and still
+//   gives each SM enough warps (CF_Diff's training and export batches: 1056
+//   rows for 1034), else 1 (its serving batch of one user, 4 groups).
 // - Keys. The block stages its group's whole K and V in shared memory once
 //   (Lk x 32 B: 33 KB at Lk 1034; dynamic shared memory above 48 KB), the
 //   tail zero-padded to a chunk of kChunk keys, so the inner loop tests no
@@ -64,6 +64,7 @@
 
 #include <algorithm>
 
+#include "attn_rows.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -71,7 +72,7 @@ namespace {
 constexpr int kDH = 4;          // d_head, one float4 per row
 constexpr int kChunk = 16;      // keys scored between two rescale checks
 constexpr int kMaxStaged = 4096;  // keys of K and V staged at once (128 KB)
-constexpr int kWarps = 4;       // warps per block, at most
+constexpr int kWarps = chaorec::kRowWarps;  // warps per block, at most
 constexpr float kTau = 8.f;     // log2 growth of the max a chunk may leave
 constexpr float kLn2 = 0.69314718055994531f;
 constexpr float kLog2e = 1.44269504088896341f;
@@ -237,33 +238,11 @@ mha_fwd_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
   }
 }
 
-struct Shape {
-  int rows_per_thread, warps, blocks_per_group;
-};
-
-// R and the block size for G groups of Lq rows: R = 3 when its warps of 96
-// rows compute at most 5% more rows than Lq and still give every SM
-// kWarpsPerSm warps, else R = 1; then blocks of up to kWarps warps, the
-// group's warps spread evenly over them.
-Shape pick_shape(long long g, int lq) {
-  constexpr int kWarpsPerSm = 8;
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const long long w3 = (lq + 95LL) / 96;
-  const int rr = (w3 * 96 * 20 <= 21LL * lq && g * w3 >= 1LL * kWarpsPerSm * sms) ? 3 : 1;
-  const long long per_group = (lq + 32LL * rr - 1) / (32LL * rr);
-  const long long blocks = (per_group + kWarps - 1) / kWarps;
-  const long long wb = (per_group + blocks - 1) / blocks;  // spread the warps evenly
-  return {rr, static_cast<int>(wb), static_cast<int>(blocks)};
-}
-
 template <int R, bool kDropout>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
-                   float* lse, long long g, int lq, int lk, const Shape& shape,
-                   const long long* seed, uint32_t thresh, float inv_keep,
-                   cudaStream_t stream) {
+                   float* lse, long long g, int lq, int lk,
+                   const chaorec::RowShape& shape, const long long* seed,
+                   uint32_t thresh, float inv_keep, cudaStream_t stream) {
   const int n_pad = (std::min(lk, kMaxStaged) + kChunk - 1) / kChunk * kChunk;
   const size_t smem = 2 * sizeof(float4) * static_cast<size_t>(n_pad);
   auto kernel = mha_fwd_kernel<R, kDropout>;
@@ -282,9 +261,9 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
 
 template <bool kDropout>
 cudaError_t dispatch(const float* q, const float* k, const float* v, float* out,
-                     float* lse, long long g, int lq, int lk, const Shape& shape,
-                     const long long* seed, uint32_t thresh, float inv_keep,
-                     cudaStream_t s) {
+                     float* lse, long long g, int lq, int lk,
+                     const chaorec::RowShape& shape, const long long* seed,
+                     uint32_t thresh, float inv_keep, cudaStream_t s) {
   switch (shape.rows_per_thread) {
     case 1: return launch<1, kDropout>(q, k, v, out, lse, g, lq, lk, shape, seed, thresh, inv_keep, s);
     case 3: return launch<3, kDropout>(q, k, v, out, lse, g, lq, lk, shape, seed, thresh, inv_keep, s);
@@ -311,7 +290,7 @@ extern "C" int chaorec_mha_fwd_f32(const float* q, const float* k,
       (dropout && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Shape shape = pick_shape(g, lq);
+  const chaorec::RowShape shape = chaorec::pick_row_shape(g, lq);
   if (shape.blocks_per_group > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(

@@ -31,6 +31,8 @@ float32. The tensor's device picks the path:
 ``fused_mha.launches`` counts forward kernel launches and
 ``fused_mha_bwd.launches`` backward ones (one per backward call, which
 launches the dq kernel and then the dk/dv kernel); CPU calls count nothing.
+The backward draws each keep bit once, in its dq kernel, and hands the
+bits to its dk/dv kernel packed in a scratch (``pack_keep_bits``).
 """
 
 from __future__ import annotations
@@ -94,6 +96,20 @@ def dropout_mask(seed: Seed, n_groups: int, lq: int, lk: int, keep_prob: float,
     return bits.reshape(n_groups, lq, 4 * n4)[..., :lk] < keep_threshold(keep_prob)
 
 
+def pack_keep_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(G, Lq, Lk) bool keep mask as (G, Lq, ceil(Lk / 32)) int32 words:
+    bit j % 32 of word j // 32 is key j, bits past Lk are 0. The layout of
+    the keep bits ``csrc/fused_mha_bwd.cu`` passes from its dq kernel to
+    its dk/dv kernel."""
+    g, lq, lk = mask.shape
+    nw = -(-lk // 32)
+    padded = torch.zeros((g, lq, 32 * nw), dtype=torch.int64, device=mask.device)
+    padded[..., :lk] = mask
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (padded.view(g, lq, nw, 32) * weights).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   seed: Optional[Seed] = None, keep_prob: float = 1.0,
                   first_group: int = 0) -> torch.Tensor:
@@ -143,7 +159,7 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = kernels.load("fused_mha_bwd").chaorec_mha_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
         ctypes.c_void_p,
@@ -220,37 +236,52 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
-                  seed: Optional[Seed], keep_prob: float = 1.0
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``fused_mha`` for the cotangent ``dout``, given the
-    forward's ``out`` and ``lse`` (B, h, Lq), all on the card: launches
-    ``csrc/fused_mha_bwd.cu``, which draws the forward's mask again. Only
-    ``_FusedMHA`` calls it; on the CPU autograd differentiates
-    ``mha_reference``, and ``mha_reference_grads`` is the plain version."""
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                seed: Optional[Seed], keep_prob: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Launches ``csrc/fused_mha_bwd.cu``: (dq, dk, dv) and, below keep 1,
+    the keep bits its dq kernel drew and its dk/dv kernel read, in
+    ``pack_keep_bits``'s layout (None at keep 1)."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_mha_bwd runs on cuda only, got {q.device}")
     _check(q, k, v, out=out, dout=dout)
     b, h, lq, dh = q.shape
+    lk = k.shape[2]
     if lse.shape != (b, h, lq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 {(b, h, lq)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
     seed_t = _seed_tensor(seed, q.device) if keep_prob < 1.0 else None
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)  # scratch: dO . O per query row
+    bits = (q.new_empty((b * h, lq, -(-lk // 32)), dtype=torch.int32)
+            if keep_prob < 1.0 else None)
     with torch.cuda.device(q.device):
         err = _bwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b * h, lq, k.shape[2], dh,
-            *_dropout_args(seed_t, keep_prob),
+            dv.data_ptr(), delta.data_ptr(), None if bits is None else bits.data_ptr(),
+            b * h, lq, lk, dh, *_dropout_args(seed_t, keep_prob),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_mha_bwd kernel launch failed: cudaError {err}")
     fused_mha_bwd.launches += 1
-    return dq, dk, dv
+    return dq, dk, dv, bits
+
+
+def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                  seed: Optional[Seed], keep_prob: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``fused_mha`` for the cotangent ``dout``, given the
+    forward's ``out`` and ``lse`` (B, h, Lq), all on the card: launches
+    ``csrc/fused_mha_bwd.cu``, whose dq kernel draws the forward's mask once
+    into a scratch of (B h, Lq, ceil(Lk / 32)) int32 words that its dk/dv
+    kernel reads. Only ``_FusedMHA`` calls it; on the CPU autograd
+    differentiates ``mha_reference``, and ``mha_reference_grads`` is the
+    plain version."""
+    return _launch_bwd(q, k, v, out, dout, lse, seed, keep_prob)[:3]
 
 
 class _FusedMHA(torch.autograd.Function):

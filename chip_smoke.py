@@ -42,10 +42,13 @@ Phases, each printing its own lines:
             same mask (also at the serving batch, B = 1, and at 5000
             keys, where the forward walks K and V in tiles; at keep 1.0
             each also timed against scaled_dot_product_attention); its
-            backward against autograd of mha_reference;
+            backward against autograd of mha_reference (also at B = 1 with
+            ragged Lq and Lk, and at 4100 keys, past the 4096 its dq kernel
+            stages at once);
             both timed against the plain version at the export chunk and
             the training batch shapes, and held to it at both (the
-            backward at the training batch, slice by slice);
+            backward at the training batch, slice by slice, and run twice
+            there for the same bits; its keep-bit scratch's bytes);
             scaled_dot_product_attention timed at the export chunk;
             fused_row_adam (through table_adam_update) against
             row_adam_update at (15207, 4096) and (15207, 384), fp32 and
@@ -73,7 +76,8 @@ Phases, each printing its own lines:
             and peak memory; the exported best epoch goes through phase 5
 8. step     one CF_Diff training step at 8 users, kernel path against plain
             path with every dropout mask equal: loss and every gradient
-9. profile  device time by kernel over one CF_Diff training step
+9. profile  device time by kernel over one CF_Diff training step, and
+            that step's peak device memory
 10. freedom FREEDOM cli.run: 2 epochs with --export_artifact (counts reset
             just before, read just after: one fused_row_adam launch per
             table per step); per epoch the loss, pre_epoch (pruning and
@@ -230,7 +234,10 @@ S_STEP_ATOL, SPREAD_FACTOR = 1e-5, 4.0
 # at 5000 keys, past the 4096 that csrc/fused_mha.cu stages at once.
 ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 1034, 1034, 4),
                (1, 4, 1034, 5000, 4))
-BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4))
+# The backward likewise at B = 1 (1 query row a thread in its dq kernel)
+# with ragged Lq and Lk, and at 4100 keys.
+BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 257, 1033, 4),
+              (2, 4, 300, 4100, 4))
 TRAIN_EPOCHS, TRAIN_BATCH = 2, 1024
 
 
@@ -1599,6 +1606,13 @@ def main(argv=None) -> int:
         train_fwd_plain_ms = cuda_ms(lambda: plain_in_slices(q, k, v, seed_t, 0.5), 2)
     out = fused_mha(q, k, v, seed_t, 0.5)
     grads = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "fused_mha_bwd gave other bits on a second run at the training batch")
+    del again
+    scratch_mb = q.shape[0] * q.shape[1] * q.shape[2] * math.ceil(k.shape[2] / 32) * 4 / 1e6
+    say("kernel", f"training batch backward: the same bits on a second run; keep-bit scratch "
+        f"{scratch_mb:.1f} MB (int32 words, (B h, Lq, ceil(Lk / 32)))")
     train_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True), 5)
     train_bwd_plain_ms, errs, scale = plain_bwd_in_slices(q, k, v, dout, seed_t, 0.5, grads)
     rel = [e / m for e, m in zip(errs, scale)]
@@ -1808,6 +1822,12 @@ def main(argv=None) -> int:
 
     device_profile("profile", f"one training step of {TRAIN_BATCH} users (forward, backward, "
                    "Adam)", train_step, os.path.join(args.out_dir, "chip_smoke_train_profile.txt"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step()
+    torch.cuda.synchronize()
+    say("profile", f"one training step of {TRAIN_BATCH} users: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     del leaves, opt, params, full, step_state, model
     torch.cuda.empty_cache()
@@ -1844,8 +1864,8 @@ def main(argv=None) -> int:
          "launches": train_launches[1], "max_abs_err": bwd_err, "ms": train_bwd_ms,
          "plain_ms": train_bwd_plain_ms, "bound_ms": train_bwd_bound[0],
          "bound_by": train_bwd_bound[1], "library_ms": None,
-         "note": f"one launch is one backward call: the dq kernel, then the dk/dv kernel; "
-                 f"{no_library}"},
+         "note": "one launch is one backward call: the dq kernel (which draws each keep bit "
+                 f"once into a scratch), then the dk/dv kernel (which reads it); {no_library}"},
     ]
     for dtype, launches, run in (("float32", freedom_launches, "the FREEDOM CLI run's"),
                                  ("bfloat16", bf16_launches, "the bf16 epoch's")):

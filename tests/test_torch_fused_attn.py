@@ -200,6 +200,24 @@ def test_backward_formula_of_the_kernels(keep):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
 
 
+@pytest.mark.parametrize("lk", [1, 31, 32, 33, 70])
+def test_pack_keep_bits_layout(lk):
+    """Bit j % 32 of word j // 32 of row (g, i) is the keep bit of weight
+    (g, i, j), as Philox draws it; the bits past Lk are 0."""
+    seed, keep = 77, 0.5
+    words = fused_attn.pack_keep_bits(fused_attn.dropout_mask(seed, 2, 3, lk, keep))
+    assert words.shape == (2, 3, -(-lk // 32)) and words.dtype == torch.int32
+    thresh = fused_attn.keep_threshold(keep)
+    for g in range(2):
+        for i in range(3):
+            for w in range(words.shape[2]):
+                word = int(words[g, i, w]) & 0xFFFFFFFF
+                for bit in range(32):
+                    j = 32 * w + bit
+                    want = j < lk and _philox_python((j // 4, i, g, 0), (seed, 0))[j % 4] < thresh
+                    assert (word >> bit) & 1 == want, (g, i, j)
+
+
 @pytest.mark.parametrize("case", ["dtype", "contiguity", "alignment", "shape", "dh",
                                   "device", "empty", "dout"])
 def test_wrapper_checks_reject_bad_inputs(case):
@@ -303,3 +321,71 @@ def test_cuda_forward_and_lse_at_ragged_shapes(shape, keep):
                                rtol=0, atol=1e-5)
     want = torch.logsumexp(torch.einsum("bhqd,bhkd->bhqk", q, k) / 2.0, dim=-1)
     torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+@pytest.mark.parametrize("shape", RAGGED_CARD)
+def test_cuda_backward_at_ragged_shapes(shape, keep):
+    """dq, dk and dv within 1e-5 of the largest entry of each plain gradient
+    (autograd of mha_reference under the same mask), at B = 1 with 1 query
+    row a thread and at 32 users with 3, ragged Lq and Lk, and 4100 keys
+    past the 4096 the dq kernel stages at once. At Lk = 1 the weight is 1
+    and dq is 0 exactly; a gradient that is 0 throughout is held to 1e-5 of
+    the largest entry of the three."""
+    _on_card()
+    q, k, v = (torch.from_numpy(t).cuda().requires_grad_()
+               for t in _qkv(shape, seed=shape[2] + 2 * shape[3]))
+    dout = torch.from_numpy(_qkv(shape, seed=shape[3])[0]).cuda()
+    seed = torch.tensor([31337], device="cuda")
+    before = fused_attn.fused_mha_bwd.launches
+    got = torch.autograd.grad(fused_attn.fused_mha(q, k, v, seed, keep), (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert fused_attn.fused_mha_bwd.launches == before + 1
+    want = fused_attn.mha_reference_grads(q, k, v, dout, seed, keep)
+    largest = max(b.abs().max().item() for b in want)
+    for name, a, b in zip("qkv", got, want):
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs().max().item() / (b.abs().max().item() or largest)
+        assert err <= 1e-5, (name, err)
+
+
+def _bwd_inputs(shape, keep, seed=7):
+    """q, k, v, out, dout and lse of one forward on the card."""
+    q, k, v = (torch.from_numpy(t).cuda() for t in _qkv(shape, seed=seed))
+    dout = torch.from_numpy(_qkv(shape, seed=seed + 1)[0]).cuda()
+    seed_t = torch.tensor([4242], device="cuda")
+    out, lse = fused_attn._launch_fwd(q, k, v, seed_t if keep < 1.0 else None, keep,
+                                      with_lse=True)
+    return q, k, v, out, dout, lse, seed_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+def test_cuda_backward_twice_gives_the_same_bits(keep):
+    """No atomics: two backward calls on the same inputs agree bit for bit."""
+    _on_card()
+    args = _bwd_inputs((3, 4, 300, 1034, 4), keep)
+    first = fused_attn._launch_bwd(*args, keep)
+    second = fused_attn._launch_bwd(*args, keep)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "bits"), first, second):
+        assert (a is None and b is None and keep == 1.0) or torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 70, 45, 4), (1, 4, 129, 1034, 4)])
+def test_cuda_keep_bits_scratch_is_the_mask(shape):
+    """The bits the dq kernel writes for the dk/dv kernel, at Lk % 32 != 0,
+    are the forward's mask (dropout_mask) in pack_keep_bits' layout, zero
+    past Lk; at keep 1 there is no scratch."""
+    _on_card()
+    b, h, lq, lk, _ = shape
+    args = _bwd_inputs(shape, 0.5)
+    bits = fused_attn._launch_bwd(*args, 0.5)[3]
+    torch.cuda.synchronize()
+    mask = fused_attn.dropout_mask(args[-1], b * h, lq, lk, 0.5, device="cuda")
+    assert torch.equal(bits, fused_attn.pack_keep_bits(mask))
+    unpacked = (bits.to(torch.int64)[..., None] >> torch.arange(32, device="cuda")) & 1
+    assert torch.equal(unpacked.reshape(b * h, lq, -1)[..., :lk].bool(), mask)
+    assert fused_attn._launch_bwd(*_bwd_inputs(shape, 1.0), 1.0)[3] is None
