@@ -3,8 +3,9 @@
 Counterpart of ``chaorec_tpu/ops/pallas_scan.py``. Its Pallas TPU kernel
 (``_cumsum_kernel``, launched by ``chunked_cumsum``) becomes the CUDA C++
 kernel ``csrc/prefix_scan.cu``: ``out[r] = sum_{i <= r} x[i]`` in fp32 for
-fp32 or bf16 x, in three passes (chunk totals, their carries, the chunk
-scans) with no atomics, so a second run gives the same bits.
+fp32 or bf16 x, in one launch that reads x once and writes out once. Tiles
+of rows hand their running total on by a look-back summed in a fixed
+forward order, so a second run gives the same bits.
 
 ``prefix_cumsum`` is what the segment sums of ``ops/ell.py`` call. The
 tensor's device picks the path:
@@ -14,23 +15,44 @@ tensor's device picks the path:
   gate: the TPU's opt-in ``use_pallas_scan`` is not ported, nor its 512-row
   blocks and zero padding (the kernel bounds the ragged edges itself).
 
-``prefix_cumsum.launches`` counts kernel launches (one per call; a call runs
-the kernel's three passes); CPU calls count nothing.
+``prefix_cumsum.launches`` counts kernel launches (one per call: a memset of
+the call's scratch, then the kernel); CPU calls count nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from chaorec_tpu_torch import kernels
 
-THREADS = 256  # block of the chunk passes, and the widest column tile
-BLOCKS_PER_SM = 4  # rows are cut into about this many chunks per SM and column tile
-MIN_BLOCK_ELEMS = 4096  # but a chunk holds at least this many elements of a tile
+# The kernel's constants (csrc/prefix_scan.cu)
+THREADS = 256  # threads of a block: row groups x units of a column tile
+RUN_ROWS = 16  # most rows of a thread's run
+MAX_UNITS = 16  # most units (4 columns, or 1 on the scalar path) of a column tile
+VEC = 4  # columns of a unit on the vector path
+
+
+class TileLayout(NamedTuple):
+    """How the kernel cuts an (m, d) input: tiles of ``tile_rows`` rows by a
+    column tile of ``tile_units`` units, ``groups`` row groups a block, each
+    a run of ``run_rows`` rows; ``scratch_words`` four-byte words of
+    scratch (a tile's aggregate and inclusive prefix, fp32 vectors of d a
+    row tile, then the tile counter)."""
+
+    vec: bool
+    units: int
+    col_tiles: int
+    tile_units: int
+    groups: int
+    tile_rows: int
+    run_rows: int
+    row_tiles: int
+    tiles: int
+    scratch_words: int
 
 
 def prefix_cumsum_reference(v: torch.Tensor) -> torch.Tensor:
@@ -41,27 +63,39 @@ def prefix_cumsum_reference(v: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _kernel_fn():
     fn = kernels.load("prefix_scan").chaorec_prefix_scan
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ctypes.c_int, ptr, ptr, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_int, ptr]
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ptr, i32, ptr, ptr, i64, i64, i32, i32, i32, i64, i64, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+@functools.lru_cache(maxsize=256)
+def tile_layout(m: int, d: int, vec: bool, tile_rows: Optional[int] = None) -> TileLayout:
+    """The kernel's tiles for an (m, d) input: column tiles of at most
+    ``MAX_UNITS`` units, as even as they can be, and (unless ``tile_rows``
+    is given, which only tests do) the tallest tile a block's registers
+    hold: ``groups x RUN_ROWS`` rows."""
+    units = d // VEC if vec else d
+    col_tiles = -(-units // MAX_UNITS)
+    tile_units = -(-units // col_tiles)
+    groups = THREADS // tile_units
+    if tile_rows is None:
+        tile_rows = groups * RUN_ROWS
+    if not 1 <= tile_rows <= groups * RUN_ROWS:
+        raise ValueError(f"tile_rows must be in [1, {groups * RUN_ROWS}], got {tile_rows}")
+    row_tiles = -(-m // tile_rows)
+    tiles = row_tiles * col_tiles
+    return TileLayout(vec, units, col_tiles, tile_units, groups, tile_rows,
+                      -(-tile_rows // groups), row_tiles, tiles, 2 * row_tiles * d + 1)
 
 
-def chunk_layout(m: int, d: int, sm_count: int) -> Tuple[int, int, int]:
-    """(rows per chunk, chunks, row groups per block) of the kernel's grid
-    for an (m, d) input: about ``BLOCKS_PER_SM`` blocks per SM, each of at
-    least ``MIN_BLOCK_ELEMS`` elements of its column tile."""
-    width = min(d, THREADS)
-    tiles = -(-d // width)
-    target = max(1, BLOCKS_PER_SM * sm_count // tiles)
-    chunk_rows = max(-(-m // target), -(-MIN_BLOCK_ELEMS // width))
-    return chunk_rows, -(-m // chunk_rows), THREADS // width
+def vector_path(v: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the kernel takes 4-column units for ``v`` and ``out``: D a
+    multiple of 4, out 16-byte aligned and v aligned to its 4 elements
+    (``cs[1:]`` of ops/ell.py lies 4 D bytes into its allocation)."""
+    d = v.numel() // v.shape[0]
+    return (d % VEC == 0 and out.data_ptr() % 16 == 0
+            and v.data_ptr() % (VEC * v.element_size()) == 0)
 
 
 def check_args(v: torch.Tensor, out: torch.Tensor) -> None:
@@ -87,17 +121,25 @@ def prefix_cumsum(v: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.
         return torch.cumsum(v.float(), dim=0, out=out)
     if v.device.type != "cuda":
         raise ValueError(f"prefix_cumsum runs on cpu or cuda, got {v.device}")
+    return _launch(v, out)
+
+
+def _launch(v: torch.Tensor, out: Optional[torch.Tensor] = None,
+            tile_rows: Optional[int] = None) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors; ``tile_rows`` other than
+    the layout's own is for tests, which use it to make many tiles."""
+    dev = v.device
     if out is None:
-        out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+        out = torch.empty(v.shape, dtype=torch.float32, device=dev)
     check_args(v, out)
     m = v.shape[0]
     d = v.numel() // m
-    chunk_rows, chunks, groups = chunk_layout(m, d, _sm_count(v.device.index))
-    part = torch.empty(chunks * groups * d, dtype=torch.float32, device=v.device)
-    with torch.cuda.device(v.device):
-        err = _kernel_fn()(v.data_ptr(), int(v.dtype == torch.bfloat16), out.data_ptr(),
-                           part.data_ptr(), m, d, chunk_rows, chunks,
-                           torch.cuda.current_stream().cuda_stream)
+    lay = tile_layout(m, d, vector_path(v, out), tile_rows)
+    scratch = torch.empty(lay.scratch_words, dtype=torch.int32, device=dev)
+    err = _kernel_fn()(v.data_ptr(), int(v.dtype == torch.bfloat16), out.data_ptr(),
+                       scratch.data_ptr(), lay.scratch_words, m, d, int(lay.vec), lay.col_tiles,
+                       lay.tile_rows, lay.row_tiles, dev.index,
+                       torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"prefix_cumsum kernel launch failed: cudaError {err}")
     prefix_cumsum.launches += 1

@@ -112,7 +112,10 @@ Phases, each printing its own lines:
             (159101, 64) over the train edges; (318202, 256), (318202, 100)
             and (318202, 64) over the doubled edges), bf16 input, the 1-D
             seg_sum's (159101,) and small ragged shapes, each bit-identical
-            on a second run; timed against the plain version and
+            on a second run (DGCF's shape over 10 runs); the kernel's
+            registers and spills (ptxas); timed back to back, as every
+            kernel, and as one CUDA graph of calls (the card's time without
+            the host's issue time) against the plain version and
             torch.cumsum; seg_sum against zeros + index_add_ (printed)
 21. dgcf    DGCF cli.run: 2 epochs with --export_artifact (counts reset
             just before, read just after: 24 prefix_cumsum launches a step,
@@ -230,6 +233,9 @@ SEG_EPOCHS = {"DGCF": 2, "DCCF": 1, "MGAT": 1}
 # float64 and rounded once, which measures how far two correct orders of
 # this step's sums drift apart.
 S_STEP_ATOL, SPREAD_FACTOR = 1e-5, 4.0
+# K4 at DGCF's shape is run this many times for the same bits: each run's
+# tiles find their look-back windows by the timing of that run.
+K4_BIT_RUNS = 10
 # The forward is also held and timed at CF_Diff's serving batch (B = 1) and
 # at 5000 keys, past the 4096 that csrc/fused_mha.cu stages at once.
 ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 1034, 1034, 4),
@@ -258,6 +264,28 @@ def cuda_ms(fn, iters: int = 10) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed, after a warm-up on a side stream: the card's time,
+    without the host's time to issue each call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -1217,10 +1245,12 @@ def scan_shapes(fds) -> dict:
 def scan_phase(gen, device, fds) -> dict:
     """K4 against prefix_cumsum_reference and a float64 prefix at every
     path shape, the 1-D seg_sum's and small ragged ones, with identical
-    bits on a second run; its times at the path shapes; seg_sum (gather,
+    bits on a second run (K4_BIT_RUNS at DGCF's shape); ptxas's registers
+    and spills; its times at the path shapes; seg_sum (gather,
     K4, pointer difference) against an index_add_ segment sum at DGCF's
-    and MGAT's shapes. Returns per path shape {max_abs_err, ms, plain_ms,
-    library_ms, bound_ms, bound_by} and the seg_sum times."""
+    and MGAT's shapes. Returns per path shape {max_abs_err, ms, graph_ms,
+    plain_ms, library_ms, bound_ms, bound_by} and the seg_sum times."""
+    from chaorec_tpu_torch import kernels
     from chaorec_tpu_torch.ops.ell import build_segment_transpose, seg_sum
     from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum, prefix_cumsum_reference
 
@@ -1233,41 +1263,48 @@ def scan_phase(gen, device, fds) -> dict:
         shape = (m,) if d is None else (m, d)
         for dtype in (torch.float32, torch.bfloat16) if name == "dgcf" else (torch.float32,):
             x = torch.randn(shape, generator=gen, device=device).to(dtype)
+            runs = K4_BIT_RUNS if name == "dgcf" else 2
             before = prefix_cumsum.launches
             got = prefix_cumsum(x)
-            again = prefix_cumsum(x)
+            same = all(torch.equal(got, prefix_cumsum(x)) for _ in range(runs - 1))
             torch.cuda.synchronize()
-            check(prefix_cumsum.launches == before + 2, f"prefix_cumsum {shape} did not launch")
+            check(prefix_cumsum.launches == before + runs, f"prefix_cumsum {shape} did not launch")
             exact = torch.cumsum(x.double(), 0)
             plain = prefix_cumsum_reference(x)
             atol, plain_atol = scan_atol(exact, m), scan_atol(exact, m, sequential=True)
             err = (got.double() - exact).abs().max().item()
             err_plain = (got - plain).abs().max().item()
             plain_exact = (plain.double() - exact).abs().max().item()
-            same = torch.equal(got, again)
             say("k4", f"prefix_cumsum {shape} {str(dtype)[6:]}: max abs err vs float64 {err:.3e} "
                 f"(bound {atol:.3e} = 4 ulp of max |prefix| x ceil(log2 M)), vs plain "
                 f"{err_plain:.3e} (bound {plain_atol:.3e}, + ulp x sqrt(M); plain vs float64 "
-                f"{plain_exact:.3e}); second run bit-identical: {same}")
+                f"{plain_exact:.3e}); {runs} runs bit-identical: {same}")
             check(got.dtype == torch.float32 and got.shape == x.shape, f"{shape}: {got.shape}")
             check(err <= atol and err_plain <= plain_atol and same,
                   f"prefix_cumsum {shape} disagrees")
             if dtype == torch.float32:
                 results[name] = dict(max_abs_err=err_plain)
-            del x, got, again, exact, plain
+            del x, got, exact, plain
 
+    ptxas = [line.strip() for line in kernels.build("prefix_scan").log.splitlines()
+             if "registers" in line or "spill" in line]
+    for line in ptxas or ["no ptxas log: the library was built before this run"]:
+        say("k4", f"ptxas (csrc/prefix_scan.cu): {line}")
     for name, (m, d) in paths.items():
         x = torch.randn((m, d), generator=gen, device=device)
         out = torch.empty_like(x)
         bms, by = bound_ms(m * d, 8 * m * d)
         results[name].update(ms=cuda_ms(lambda: prefix_cumsum(x, out=out), 20),
+                             graph_ms=graph_ms(lambda: prefix_cumsum(x, out=out), 20),
                              plain_ms=cuda_ms(lambda: prefix_cumsum_reference(x), 5),
                              library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5),
                              bound_ms=bms, bound_by=by)
         r = results[name]
-        say("k4", f"prefix_cumsum ({m}, {d}) {name}: kernel {r['ms']:.4f} ms, plain "
+        say("k4", f"prefix_cumsum ({m}, {d}) {name}: kernel {r['ms']:.4f} ms (20 calls back "
+            f"to back; {r['graph_ms']:.4f} ms as a CUDA graph of 20 calls), plain "
             f"{r['plain_ms']:.4f} ms, library (torch.cumsum) {r['library_ms']:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}: 8 M D bytes over 3.35 TB/s), {100 * bms / r['ms']:.1f}% of it")
+            f"{bms:.4f} ms ({by}: 8 M D bytes over 3.35 TB/s), {100 * bms / r['ms']:.1f}% of it "
+            f"({100 * bms / r['graph_ms']:.1f}% in the graph)")
         del x, out
 
     # seg_sum as the models call it, against the atomics route, on the
@@ -1469,8 +1506,7 @@ def seg_phases(args, device, fds) -> dict:
             "launches, forward and backward, Adam)",
             lambda: trainer.train_step(params, opt, batch),
             os.path.join(args.out_dir, f"chip_smoke_{phase}_step_profile.txt"),
-            groups={"K4 (prefix_scan: group sums, carries, scans)": (
-                        "group_sums", "carry_kernel", "scan_kernel"),
+            groups={"K4 (prefix_scan: lookback_scan_kernel)": ("lookback_scan",),
                     "gathers, scatters and index_add_ (seg_gather, permute gathers, pointer "
                     "differences, row gathers and their backward)": (
                         "index", "scatter", "gather"),
@@ -1899,8 +1935,9 @@ def main(argv=None) -> int:
             "source": "chaorec_tpu_torch/csrc/prefix_scan.cu",
             "replaces": "chaorec_tpu/ops/pallas_scan.py:49", "shape": [m, d],
             "launches": seg_launches[model], **k4[name],
-            "note": f"launches: the {model} CLI run's, over all its shapes (one launch is the "
-                    "kernel's three passes); library: torch.cumsum, one call"})
+            "note": f"launches: the {model} CLI run's, over all its shapes (one launch is a "
+                    "memset of its scratch and the one-pass kernel); ms: 20 calls back to back; "
+                    "graph_ms: 20 calls in one CUDA graph; library: torch.cumsum, one call"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

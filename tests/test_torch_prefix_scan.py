@@ -13,6 +13,11 @@ the CUDA kernel to a float64 prefix with that bound, and to the plain
 version (torch.cumsum, whose rows are added one after another on the card)
 with ``ulp x sqrt(M)`` more, at the shapes DGCF, DCCF and MGAT give it on
 sports.
+
+``kernel_order`` is the kernel's fp32 summation order written in numpy. On
+the CPU it shows that order inside the gate (also carried over 10,607
+tiles); on the card the kernel's bits equal it, so the look-back's carry is
+the serial running total whatever window each tile found.
 """
 
 import math
@@ -78,20 +83,95 @@ def test_out_and_bf16_input():
     assert tscan.prefix_cumsum.launches == before
 
 
-@pytest.mark.parametrize("m,d,sms", [(159101, 32, 132), (159101, 64, 132), (318202, 256, 132),
-                                     (318202, 100, 132), (159101, 1, 132), (1, 1, 132),
-                                     (513, 300, 132), (5, 2000, 8)])
-def test_chunk_layout_covers_every_row(m, d, sms):
-    """Every row lands in exactly one chunk and one group's run, and the
-    grid gives the 132 SMs a few blocks each once the input is large."""
-    chunk_rows, chunks, groups = tscan.chunk_layout(m, d, sms)
-    width = min(d, tscan.THREADS)
-    assert groups == tscan.THREADS // width >= 1
-    assert chunks * chunk_rows >= m > (chunks - 1) * chunk_rows
-    run = -(-chunk_rows // groups)
-    assert groups * run >= chunk_rows
-    if m * d >= 4_000_000:
-        assert chunks * -(-d // width) >= 2 * sms
+def kernel_order(x: np.ndarray, lay: tscan.TileLayout) -> np.ndarray:
+    """csrc/prefix_scan.cu's fp32 summation order, in numpy: each group's
+    run scanned in order, the run totals scanned over the groups
+    (Hillis-Steele), the carry as the serial running total of the tiles'
+    aggregates, out = (carry + the groups before) + the run's prefix. The
+    columns are independent, so column tiles do not change it."""
+    m, d = x.shape
+    g, run, rows, tiles = lay.groups, lay.run_rows, lay.tile_rows, lay.row_tiles
+    r = np.arange(m)
+    blocks = np.zeros((tiles, g, run, d), np.float32)
+    blocks[r // rows, r % rows // run, r % rows % run] = x
+    incl = np.cumsum(blocks, axis=2, dtype=np.float32)
+    part = incl[:, :, -1].copy()
+    off = 1
+    while off < g:
+        part[:, off:] = part[:, off:] + part[:, :-off]
+        off *= 2
+    before = np.concatenate([np.zeros_like(part[:, :1]), part[:, :-1]], axis=1)
+    carry = np.zeros((tiles, d), np.float32)
+    total = part[0, -1]
+    for i in range(1, tiles):
+        carry[i] = np.float32(0) + total
+        total = carry[i] + part[i, -1]
+    out = (carry[:, None, :] + before)[:, :, None, :] + incl
+    return out.reshape(tiles, g * run, d)[:, :rows].reshape(-1, d)[:m]
+
+
+# the 8 shapes of the parent's chunk layout test: DGCF's, DCCF's, MGAT's
+# 256- and 100-wide, the 1-D seg_sum, one row, a ragged column tile, a
+# short wide input
+LAYOUT_SHAPES = [(159101, 32), (159101, 64), (318202, 256), (318202, 100), (159101, 1), (1, 1),
+                 (513, 300), (5, 2000)]
+
+
+@pytest.mark.parametrize("m,d", LAYOUT_SHAPES)
+def test_tile_layout_covers_every_row(m, d):
+    """Every row falls in exactly one tile and one group's run, every
+    column in one column tile; the tile count and the scratch are what the
+    C entry checks (csrc/prefix_scan.cu:chaorec_prefix_scan)."""
+    vec = d % tscan.VEC == 0
+    lay = tscan.tile_layout(m, d, vec)
+    units = d // tscan.VEC if vec else d
+    assert lay.units == units and lay.col_tiles == -(-units // tscan.MAX_UNITS)
+    assert lay.tile_units == -(-units // lay.col_tiles) <= tscan.MAX_UNITS
+    assert lay.groups == tscan.THREADS // lay.tile_units
+    assert lay.tile_rows <= lay.groups * tscan.RUN_ROWS and lay.run_rows <= tscan.RUN_ROWS
+    assert lay.row_tiles == -(-m // lay.tile_rows) and lay.tiles == lay.row_tiles * lay.col_tiles
+    assert lay.scratch_words == 2 * lay.row_tiles * d + 1
+    hits = np.zeros(m, np.int64)
+    for t in range(lay.row_tiles):
+        t0, t1 = t * lay.tile_rows, min((t + 1) * lay.tile_rows, m)
+        for g in range(lay.groups):
+            r0 = min(t0 + g * lay.run_rows, t1)
+            hits[r0:min(r0 + lay.run_rows, t1)] += 1
+    assert (hits == 1).all()
+    cols = np.zeros(units, np.int64)
+    for c in range(lay.col_tiles):
+        cols[c * lay.tile_units:(c + 1) * lay.tile_units] += 1
+    assert (cols == 1).all()
+    if m * d >= 4_000_000:  # a path shape: 64 KB fp32 tiles, a few hundred or more
+        assert lay.tile_rows * lay.tile_units * (tscan.VEC if vec else 1) * 4 >= 60_000
+        assert lay.tiles >= 264
+
+
+@pytest.mark.parametrize("d", [1, 3, 7, 32, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_path_follows_alignment(d, dtype):
+    """``out`` one row into its allocation, as ops/ell.py passes ``cs[1:]``:
+    16-byte units only where D % 4 == 0 keeps out aligned; a shifted v
+    takes the scalar path."""
+    v = torch.zeros((9, d), dtype=dtype)
+    cs = torch.empty((10, d))
+    assert cs.data_ptr() % 16 == 0
+    assert tscan.vector_path(v, cs[1:]) == (d % 4 == 0)
+    assert not tscan.vector_path(torch.zeros(9 * d + 1, dtype=dtype)[1:].view(9, d), cs[1:])
+
+
+@pytest.mark.parametrize("m,d,tile_rows", [(1300, 32, None), (1300, 100, None), (5000, 1, None),
+                                           (159101, 32, 15)])
+def test_kernel_order_within_error_gate(m, d, tile_rows):
+    """The kernel's summation order, carried over 10,607 tiles at DGCF's
+    shape at its most, is within the gate the card holds it to."""
+    x = _x(m, d)
+    lay = tscan.tile_layout(m, d, d % 4 == 0, tile_rows)
+    got = kernel_order(x, lay)
+    exact = np.cumsum(x.astype(np.float64), axis=0)
+    assert np.abs(got - exact).max() <= scan_atol(exact, m)
+    if tile_rows:
+        assert lay.tiles >= 10_000
 
 
 @pytest.mark.parametrize("case", ["empty", "rank", "dtype", "out_dtype", "out_shape", "layout"])
@@ -152,3 +232,96 @@ def test_cuda_kernel_bf16_one_dimensional_and_out():
     assert got.shape == (159101,) and got.data_ptr() == out[1:].data_ptr()
     exact = torch.cumsum(x.double(), 0)
     assert (got.double() - exact).abs().max().item() <= scan_atol(exact.cpu().numpy(), 159101)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,tile_rows", [(159101, 32, 15), (159101, 32, None), (318202, 100, None),
+                                           (70000, 7, None), (5000, 1, 1)])
+def test_cuda_kernel_bits_equal_its_order(m, d, tile_rows):
+    """The kernel's bits equal kernel_order's, at its own tiles and at
+    15-row tiles (10,607 of them at DGCF's shape, so that the look-back
+    walks long windows); with 1-row tiles the carry is the whole scan."""
+    _on_card()
+    x = _x(m, d)
+    xc = torch.from_numpy(x).cuda()
+    before = tscan.prefix_cumsum.launches
+    got = tscan._launch(xc, tile_rows=tile_rows).cpu().numpy()
+    assert tscan.prefix_cumsum.launches == before + 1
+    lay = tscan.tile_layout(m, d, d % 4 == 0, tile_rows)
+    if tile_rows == 15:
+        assert lay.tiles >= 10_000
+    np.testing.assert_array_equal(got, kernel_order(x, lay))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_same_bits_ten_calls():
+    """Ten calls at DGCF's shape give the same bits, whatever window each
+    tile's look-back found."""
+    _on_card()
+    gen = torch.Generator("cuda").manual_seed(10)
+    x = torch.randn((159101, 32), generator=gen, device="cuda")
+    first = tscan.prefix_cumsum(x)
+    for _ in range(9):
+        assert torch.equal(tscan.prefix_cumsum(x), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 7, 32, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_out_one_row_in(d, dtype):
+    """``out`` one row into its allocation, as ops/ell.py passes ``cs[1:]``
+    (not 16-byte aligned at D = 1, 3 and 7): the prefix lands there and
+    the row in front stays as it was."""
+    _on_card()
+    m = 20000
+    gen = torch.Generator("cuda").manual_seed(d)
+    x = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+    cs = torch.full((m + 1, d), 5.0, device="cuda")
+    got = tscan.prefix_cumsum(x, out=cs[1:])
+    assert got.data_ptr() == cs[1:].data_ptr()
+    assert tscan.vector_path(x, cs[1:]) == (d % 4 == 0)
+    assert bool((cs[0] == 5.0).all())
+    exact = torch.cumsum(x.double(), 0)
+    assert (cs[1:].double() - exact).abs().max().item() <= scan_atol(exact.cpu().numpy(), m)
+
+
+@pytest.mark.cuda
+def test_cuda_back_to_back_shapes_reset_the_scratch():
+    """Calls of different shapes queued on one stream without a sync: each
+    clears its own scratch (values and counter), so each is right."""
+    _on_card()
+    gen = torch.Generator("cuda").manual_seed(5)
+    shapes = [(159101, 32), (513, 100), (70000, 7), (159101, 32), (1, 1), (318202, 64),
+              (1300, 257)]
+    xs = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    outs = [tscan.prefix_cumsum(x) for x in xs for _ in range(2)]
+    torch.cuda.synchronize()
+    for i, x in enumerate(xs):
+        exact = torch.cumsum(x.double(), 0)
+        for got in outs[2 * i:2 * i + 2]:
+            err = (got.double() - exact).abs().max().item()
+            assert err <= scan_atol(exact.cpu().numpy(), x.shape[0]), (x.shape, err)
+        assert torch.equal(outs[2 * i], outs[2 * i + 1])
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_resets_the_scratch():
+    """One call captured in a CUDA graph replays right on new data, with the
+    bits of an eager call: the memset captured with it clears the scratch
+    at every replay."""
+    _on_card()
+    gen = torch.Generator("cuda").manual_seed(11)
+    x = torch.randn((159101, 32), generator=gen, device="cuda")
+    out = torch.empty_like(x)
+    tscan.prefix_cumsum(x, out=out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tscan.prefix_cumsum(x, out=out)
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        exact = torch.cumsum(x.double(), 0)
+        assert (out.double() - exact).abs().max().item() <= scan_atol(exact.cpu().numpy(), 159101)
+        assert torch.equal(out, tscan.prefix_cumsum(x))
