@@ -17,4 +17,11 @@ Ported so far: the serving path of CF_Diff (export and serve) and the
 embeddings Recommender. See ROADMAP.md for what remains.
 """
 
+import os
+
+# The trainer runs in PyTorch's deterministic mode (train/loop.py:
+# deterministic_mode), under which a cuBLAS product raises unless this is
+# set before the process's first cuBLAS call.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 __version__ = "0.1.0"

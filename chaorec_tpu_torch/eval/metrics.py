@@ -38,8 +38,11 @@ def metric_sums(ranked: torch.Tensor, pos: torch.Tensor, pos_len: torch.Tensor,
     hits_f = hits.float()
     positions = torch.arange(kmax, dtype=torch.float32, device=ranked.device)
     inv_log = 1.0 / torch.log(positions + 2.0)  # natural log
-    cum_inv_log = torch.cumsum(inv_log, 0)  # cum_inv_log[m-1] = IDCG of m truths
-    cum_hits = torch.cumsum(hits_f, dim=1)
+    # cum_inv_log[m-1] = IDCG of m truths. Both prefixes are taken where the
+    # trainer's deterministic mode allows them (it refuses torch.cumsum of a
+    # CUDA float): inv_log's on the host (K values), the hits' in integers.
+    cum_inv_log = torch.cumsum(inv_log.cpu(), 0).to(ranked.device)
+    cum_hits = torch.cumsum(hits, dim=1).float()
     nonempty = (pos_len > 0).float()
     len_f = torch.clamp(pos_len.float(), min=1.0)
     rows = []

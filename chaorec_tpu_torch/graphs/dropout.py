@@ -10,21 +10,33 @@ drops entries, as in the JAX package. Two forms:
 - ``masked_dense_r``: the weights scatter-added into a dense (U, I) R, for
   per-epoch pruning (FREEDOM);
 - ``masked_edge_weights`` + ``edge_propagate``: the weights stay on the
-  edges and a hop is two ``index_add_``s, for per-batch views (SGL draws
-  two views every step, so a dense rebuild would cost O(U I) per step).
+  edges and a hop is two segment sums, for per-batch views (SGL draws two
+  views every step, so a dense rebuild would cost O(U I) per step).
 
 SGL's masks index the graph's user-sorted edge order
 (``BipartiteGraph.u_by_u``/``i_by_u``); both packages sort the edges by user
 stably, so a mask drawn by one applies to the other. The JAX package's
 scatter-free ``sorted_two_way_propagate`` is a TPU workaround and is not
-ported: here autograd of ``edge_propagate`` gives the gradients.
+ported.
+
+A hop's sums are taken without atomics, in a fixed order (``EdgeBags``,
+one ``ops/ell.SegmentBags`` a side: each destination row sums its edges
+in chunks, then its chunks, weighted by w). The hop is its own transpose,
+so its backward is the same two sums of the cotangents (``_EdgeHop``).
+So the same inputs give the same bits on the card, at every degree: an
+``index_add_`` sums in the atomics' order, and under the trainer's
+deterministic mode sorts, which a row of thousands of edges (a popular
+item) makes slow.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+from chaorec_tpu_torch.ops.ell import SegmentBags, segment_bags
 
 
 def masked_dense_r(edge_u: torch.Tensor, edge_i: torch.Tensor, keep: torch.Tensor,
@@ -64,16 +76,55 @@ def masked_edge_weights(edge_u: torch.Tensor, edge_i: torch.Tensor, keep: torch.
     return w, None, None
 
 
+@dataclass(frozen=True)
+class EdgeBags:
+    """Both sides' ``SegmentBags`` of one edge list: users (sums over a
+    user's edges of the items' rows) and items. Built once per graph."""
+
+    users: SegmentBags
+    items: SegmentBags
+
+    @staticmethod
+    def build(edge_u: torch.Tensor, edge_i: torch.Tensor, num_user: int,
+              num_item: int) -> "EdgeBags":
+        u, i = edge_u.cpu().numpy(), edge_i.cpu().numpy()
+        return EdgeBags(segment_bags(u, i, num_user, edge_u.device),
+                        segment_bags(i, u, num_item, edge_u.device))
+
+    def hop(self, w: torch.Tensor, xu: torch.Tensor, xi: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.users.sum(xi, w), self.items.sum(xu, w)
+
+
+class _EdgeHop(torch.autograd.Function):
+    """(new_u, new_i) = (A xi, A^T xu) for the weighted (U, I) incidence A:
+    the hop is symmetric, so the cotangents go back through the same sums."""
+
+    @staticmethod
+    def forward(ctx, w, xu, xi, bags, edge_u, edge_i):
+        ctx.bags = bags
+        ctx.save_for_backward(w, xu, xi, edge_u, edge_i)
+        return bags.hop(w, xu, xi)
+
+    @staticmethod
+    def backward(ctx, g_u, g_i):
+        w, xu, xi, edge_u, edge_i = ctx.saved_tensors
+        gw = None
+        if ctx.needs_input_grad[0]:
+            gw = (torch.sum(g_u[edge_u] * xi[edge_i].float(), dim=1)
+                  + torch.sum(g_i[edge_i] * xu[edge_u].float(), dim=1)).to(w.dtype)
+        gxu, gxi = ctx.bags.hop(w, g_u, g_i)
+        return (gw, gxu.to(xu.dtype) if ctx.needs_input_grad[1] else None,
+                gxi.to(xi.dtype) if ctx.needs_input_grad[2] else None, None, None, None)
+
+
 def edge_propagate(edge_u: torch.Tensor, edge_i: torch.Tensor, w: torch.Tensor,
-                   xu: torch.Tensor, xi: torch.Tensor, num_user: int, num_item: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   xu: torch.Tensor, xi: torch.Tensor, num_user: int, num_item: int,
+                   bags: Optional[EdgeBags] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One symmetric hop over weighted edges: (sum over a user's edges of
-    w xi[item], sum over an item's edges of w xu[user]), in float32. The
-    gathers are ``index_select``s, whose gradient is an ``index_add_`` (the
-    gradient of ``xi[edge_i]`` sorts the edges first, several times slower
-    on the card)."""
-    new_u = xi.new_zeros((num_user, xi.shape[1]), dtype=torch.float32)
-    new_u = new_u.index_add(0, edge_u, w[:, None] * xi.index_select(0, edge_i))
-    new_i = xu.new_zeros((num_item, xu.shape[1]), dtype=torch.float32)
-    new_i = new_i.index_add(0, edge_i, w[:, None] * xu.index_select(0, edge_u))
-    return new_u, new_i
+    w xi[item], sum over an item's edges of w xu[user]), in float32, in a
+    fixed order (``EdgeBags``; built here when not given, which reads the
+    edges back to the host: a caller that hops often builds it once)."""
+    if bags is None:
+        bags = EdgeBags.build(edge_u, edge_i, num_user, num_item)
+    return _EdgeHop.apply(w, xu, xi, bags, edge_u, edge_i)

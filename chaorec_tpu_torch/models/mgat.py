@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
-from chaorec_tpu_torch.ops.edge_softmax import segment_softmax
+from chaorec_tpu_torch.ops.edge_softmax import segment_softmax, softmax_bags
 from chaorec_tpu_torch.ops.ell import build_segment_transpose, seg_gather, seg_sum
 from chaorec_tpu_torch.ops.init import torch_linear_init, xavier_normal
 from chaorec_tpu_torch.ops.losses import bpr_loss, emb_l2_reg, l2norm
@@ -58,6 +58,7 @@ class MGAT(RecModel):
         self.n_nodes = n
         self._perm_src, self._ptr_src = build_segment_transpose(self.src, n)
         self._perm_dst, self._ptr_dst = build_segment_transpose(self.dst, n)
+        self._bags_dst = softmax_bags(self.dst, n)
 
     def init_params(self, generator: torch.Generator) -> Params:
         p = {"id_embedding": xavier_normal(generator, (self.n_nodes, self.dim_E))}
@@ -84,7 +85,7 @@ class MGAT(RecModel):
         xw_dst = seg_gather(xw, self.dst, self._perm_dst, self._ptr_dst)
         inner = torch.sum(xw_dst * F.leaky_relu(xw_src, 0.01), dim=1)
         gate = torch.sigmoid(self.deg_inv_sqrt_src * inner)
-        att = segment_softmax(inner * gate, self.dst, self.n_nodes)
+        att = segment_softmax(inner * gate, self.dst, self.n_nodes, bags=self._bags_dst)
         out = seg_sum(att[:, None] * xw_src, self.dst, self._perm_dst, self._ptr_dst)
         return l2norm(out + params[f"{mod}_conv{i}_b"])
 

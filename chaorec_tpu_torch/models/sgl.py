@@ -28,7 +28,8 @@ from typing import Tuple
 
 import torch
 
-from chaorec_tpu_torch.graphs.dropout import bernoulli_keep, edge_propagate, masked_edge_weights
+from chaorec_tpu_torch.graphs.dropout import (EdgeBags, bernoulli_keep, edge_propagate,
+                                              masked_edge_weights)
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
 from chaorec_tpu_torch.ops.init import xavier_uniform
@@ -49,6 +50,8 @@ class SGL(RecModel):
         self.n_layers = n_layers
         self.ssl_temp = ssl_temp
         self.ssl_reg = ssl_reg
+        # the views' hop sums, laid out once over the graph's edges
+        self.bags = EdgeBags.build(graph.u_by_u, graph.i_by_u, num_user, num_item)
 
     def init_params(self, generator: torch.Generator) -> Params:
         return {
@@ -77,7 +80,8 @@ class SGL(RecModel):
         w, _, _ = masked_edge_weights(g.u_by_u, g.i_by_u, keep, self.num_user, self.num_item)
 
         def prop(xu, xi):
-            return edge_propagate(g.u_by_u, g.i_by_u, w, xu, xi, self.num_user, self.num_item)
+            return edge_propagate(g.u_by_u, g.i_by_u, w, xu, xi, self.num_user, self.num_item,
+                                  self.bags)
 
         return self._gcn_mean(params["user_embedding"], params["item_embedding"], prop)
 

@@ -14,6 +14,14 @@ other's transpose, so the backward of ``seg_sum`` is a gather and the
 backward of ``seg_gather`` is the ``seg_sum`` primal, through the prefix
 kernel again. The index arguments get no gradient.
 
+``SegmentBags`` sums segments another way, each one on its own: in order,
+a bag of at most ``BAG_CHUNK`` rows at a time, then the bags
+(``torch.nn.functional.embedding_bag``, no atomics), so its error is that
+of the segment's own sum, and a segment of thousands of rows costs a few
+short bags, not one long serial loop. ``bag_sum`` is its differentiable
+form (the gradient is a gather). SGL's views (``graphs/dropout.py``) and
+the edge softmax's sums (``ops/edge_softmax.py``) use it.
+
 The ELL matrices (``EllMatrix``, ``EllPattern``), the grouped primitives
 and ``seg_edge_weighted_sum`` are TPU gather layouts or come with their
 models (ROADMAP).
@@ -21,11 +29,16 @@ models (ROADMAP).
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+
+BAG_CHUNK = 32  # rows (then bags) one bag of SegmentBags sums in order, at most
 
 
 def build_segment_transpose(indices: torch.Tensor, num_segments: int
@@ -108,3 +121,78 @@ def seg_gather(x: torch.Tensor, flat_idx: torch.Tensor, perm: torch.Tensor,
     if ptr.shape[0] != x.shape[0] + 1:
         raise ValueError(f"ptr has {ptr.shape[0]} entries, x {x.shape[0]} rows")
     return _SegGather.apply(x, flat_idx, perm, ptr)
+
+
+@dataclass(frozen=True)
+class SegmentBags:
+    """Fixed-order sums over the segments of a fixed index list (each entry
+    j: a segment dest[j] and a source row src[j]): the entries in segment
+    order (``order``, None when already so), their source rows in that
+    order (``src``), and the bag offsets of each level (``levels``): the
+    first level's bags are runs of at most BAG_CHUNK entries of one
+    segment, each later level's of at most BAG_CHUNK bags of the level
+    before, and the last level has one bag a segment (empty for a segment
+    without entries)."""
+
+    order: Optional[torch.Tensor]
+    src: torch.Tensor
+    levels: List[torch.Tensor]
+    inputs: List[torch.Tensor]  # arange(bags) of each level but the last, the next level's input
+
+    def sum(self, x: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(segments, D) float32: segment s's sum of w[j] x[src[j]] over its
+        entries j (w (E,) in the entries' own order; 1 when None)."""
+        if w is not None:
+            w = (w if self.order is None else w[self.order]).float()
+        out = F.embedding_bag(self.src, x.float(), self.levels[0], mode="sum",
+                              per_sample_weights=w)
+        for inp, offsets in zip(self.inputs, self.levels[1:]):
+            out = F.embedding_bag(inp, out, offsets, mode="sum")
+        return out
+
+
+def segment_bags(dest: np.ndarray, src: np.ndarray, num_rows: int,
+                 device: torch.device | str) -> SegmentBags:
+    """``SegmentBags`` of the entries (dest, src), ``dest`` in any order.
+    Built on the host, once per index list."""
+    order = np.argsort(dest, kind="stable")
+    counts = np.bincount(dest, minlength=num_rows).astype(np.int64)
+    levels = []
+    while True:
+        starts = np.cumsum(counts) - counts  # each row's first entry at this level
+        if counts.max(initial=0) <= BAG_CHUNK:
+            levels.append(starts)
+            break
+        chunks = -(-counts // BAG_CHUNK)
+        row = np.repeat(np.arange(num_rows), chunks)
+        nth = np.arange(row.shape[0]) - (np.cumsum(chunks) - chunks)[row]
+        levels.append(starts[row] + BAG_CHUNK * nth)
+        counts = chunks
+    def as_t(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
+
+    identity = bool(np.all(order == np.arange(order.shape[0])))
+    return SegmentBags(order=None if identity else as_t(order), src=as_t(src[order]),
+                       levels=[as_t(a) for a in levels],
+                       inputs=[torch.arange(a.shape[0], device=device) for a in levels[:-1]])
+
+
+class _BagSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, bags, dest):
+        ctx.save_for_backward(dest)
+        ctx.dtype = values.dtype
+        return bags.sum(values.reshape(values.shape[0], -1)).reshape(-1, *values.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest,) = ctx.saved_tensors
+        return g[dest].to(ctx.dtype), None, None
+
+
+def bag_sum(values: torch.Tensor, dest: torch.Tensor, bags: SegmentBags) -> torch.Tensor:
+    """``out[s] = sum_{j: dest[j] == s} values[j]`` (fp32, (S,) or (S, D)),
+    each segment summed on its own in a fixed order; ``bags`` is
+    ``segment_bags(dest, arange(E), S)``. Differentiable in ``values`` (the
+    gradient is the gather ``g[dest]``)."""
+    return _BagSum.apply(values, bags, dest)

@@ -3,7 +3,8 @@
 Counterpart of ``chaorec_tpu/ops/kmeans.py``. NCL clusters its raw user and
 item tables every training step (Model/NCL.py:61-94,
 train_and_evaluate.py:107-115); here each iteration is one (N, D) @ (D, K)
-product, an argmax and two ``index_add_``s, all on the tables' device:
+product, an argmax, a one-hot product for the clusters' sums and a count,
+all on the tables' device and in a fixed order (no atomic sums):
 
 - initial centroids: k distinct rows, the first k of a permutation drawn
   from the generator;
@@ -34,11 +35,12 @@ def kmeans_from(x: torch.Tensor, init_idx: torch.Tensor, iters: int = 15
     iterations from the rows ``init_idx`` (k,) of ``x`` (N, D)."""
     k = init_idx.shape[0]
     c = x[init_idx]
-    ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    clusters = torch.arange(k, device=x.device)
     for _ in range(iters):
         a = _assign(x, c)
-        sums = torch.zeros_like(c).index_add_(0, a, x)
-        counts = torch.zeros(k, dtype=x.dtype, device=x.device).index_add_(0, a, ones)
+        onehot = (a[:, None] == clusters[None, :]).to(x.dtype)
+        sums = onehot.T @ x
+        counts = torch.bincount(a, minlength=k).to(x.dtype)
         new_c = sums / torch.clamp(counts, min=1.0)[:, None]
         c = torch.where(counts[:, None] > 0, new_c, c)
     return c, _assign(x, c)

@@ -24,10 +24,13 @@ picks the path:
   no size gate and no fallback: a build or launch error raises.
 
 Each wrapper counts its launches in ``.launches`` (one per call; a call
-runs the kernel and its short combine pass). The TPU layout (``n_valid``,
-``_pad_rows``, ``TILE_B``/``TILE_N``) is not ported: the kernels mask the
-ragged edges themselves. The TPU's size gate ``use_pallas_lse`` is not
-ported either.
+runs the kernel and its short combine pass, which dk skips when B is not
+split). At E = 64 the backward pair runs one tile engine
+(``lse_bwd64_kernel``, laid out by ``backward_splits``); at other widths
+the generic kernels (laid out by ``catalog_splits``, as the forward). The
+TPU layout (``n_valid``, ``_pad_rows``, ``TILE_B``/``TILE_N``) is not
+ported: the kernels mask the ragged edges themselves. The TPU's size gate
+``use_pallas_lse`` is not ported either.
 """
 
 from __future__ import annotations
@@ -43,6 +46,10 @@ from chaorec_tpu_torch import kernels
 TILE = 64  # rows of a q tile and of a k tile in the kernels
 MAX_E = 256
 BLOCKS_PER_SM = 4  # the forward and dq split the catalog to about this many blocks per SM
+# The backward pair at E = 64 (lse_bwd64_kernel): a block keeps this many
+# rows of one side (dq: q, dk: k) and streams the other in TILE-row tiles,
+# split across blocks to about BWD_BLOCKS_PER_SM blocks per SM.
+BWD_E, BWD_ROWS, BWD_BLOCKS_PER_SM = 64, 128, 2
 
 
 def streaming_logsumexp_reference(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -60,7 +67,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.chaorec_lse_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.chaorec_lse_dq.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.chaorec_lse_dk.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.chaorec_lse_dk.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     for fn in (lib.chaorec_lse_fwd, lib.chaorec_lse_dq, lib.chaorec_lse_dk):
         fn.restype = ctypes.c_int
     return lib
@@ -79,6 +86,24 @@ def catalog_splits(b: int, n: int, sm_count: int) -> Tuple[int, int]:
     splits = min(col_tiles, max(1, -(-BLOCKS_PER_SM * sm_count // row_tiles)))
     per = -(-col_tiles // splits)
     return -(-col_tiles // per), per
+
+
+def backward_splits(rows: int, streamed: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the streamed side's TILE-row tiles for
+    the E = 64 backward kernels, whose blocks keep BWD_ROWS ``rows`` each:
+    about BWD_BLOCKS_PER_SM blocks per SM in all, each split non-empty. dq
+    keeps q and streams k (the catalog), dk keeps k and streams q."""
+    row_tiles, col_tiles = -(-rows // BWD_ROWS), -(-streamed // TILE)
+    splits = min(col_tiles, max(1, int(BWD_BLOCKS_PER_SM * sm_count / row_tiles + 0.5)))
+    per = -(-col_tiles // splits)
+    return -(-col_tiles // per), per
+
+
+def takes_bwd64(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the backward pair runs lse_bwd64_kernel (E 64, q and k
+    16-byte aligned for its cp.async copies), as the C entry points decide;
+    else their generic kernels."""
+    return q.shape[1] == BWD_E and q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor) -> None:
@@ -141,7 +166,8 @@ def streaming_lse_dq(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
     dev = q.device
     b, e = q.shape
     n = k.shape[0]
-    splits, per = catalog_splits(b, n, _sm_count(dev.index))
+    sms = _sm_count(dev.index)
+    splits, per = backward_splits(b, n, sms) if takes_bwd64(q, k) else catalog_splits(b, n, sms)
     part = torch.empty((splits, b, e), dtype=torch.float32, device=dev)
     dq = torch.empty((b, e), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -160,10 +186,17 @@ def streaming_lse_dk(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
     dev = q.device
     b, e = q.shape
     n = k.shape[0]
+    if takes_bwd64(q, k):
+        splits, per = backward_splits(n, b, _sm_count(dev.index))
+    else:  # the generic kernel walks all of B in one block
+        splits, per = 1, -(-b // TILE)
     dk = torch.empty((n, e), dtype=torch.float32, device=dev)
+    # one split writes dk directly
+    part = torch.empty((splits, n, e), dtype=torch.float32, device=dev) if splits > 1 else dk
     with torch.cuda.device(dev):
         err = _lib().chaorec_lse_dk(q.data_ptr(), k.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                                    dk.data_ptr(), b, n, e, _stream())
+                                    part.data_ptr(), dk.data_ptr(), b, n, e, splits, per,
+                                    _stream())
     _raise_on(err, "streaming_lse_dk")
     streaming_lse_dk.launches += 1
     return dk

@@ -35,6 +35,13 @@ Behavioral parity with the JAX trainer, and through it the reference:
   metric tables, ``epoch_time_s`` and the ``Best Test Metrics:`` block;
 - best metrics = test metrics at the best epoch.
 
+Same seed, same bits: the trainer runs in PyTorch's deterministic mode
+(``deterministic_mode``), entered by ``run``, ``train_epoch``,
+``train_step``, ``evaluate`` and the CLI's export. On the card that turns
+every sum the port takes by atomics (``index_add_``, the backward of a row
+gather) into a sorted, fixed-order one, so two runs on one seed give equal
+losses and rank lists, as the JAX package's (tests/test_determinism.py).
+
 What the port measures in ``epoch_time_s`` differs: the "train-dispatch"
 slot is the whole training epoch (``pre_epoch`` included) up to the host's
 read of its loss (the device has finished by then), and "eval+sync" the
@@ -52,6 +59,7 @@ them: the trainer refuses a model that asks for one, and refuses
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -79,6 +87,30 @@ UNPORTED_FLAGS = {
     "mesh_shape": "Queue 1 item 9 (multi-device)",
     "profile_dir": "Queue 1 items 8-9 (the profiler hook comes with them)",
 }
+
+
+@contextlib.contextmanager
+def deterministic_mode():
+    """PyTorch's deterministic algorithms on, and the previous state back on
+    exit; usable as a decorator. Under it ``index_add_`` and ``index_put_``
+    with ``accumulate`` sum in a fixed order on the card, and an operation
+    with no deterministic CUDA version (``torch.cumsum`` of a CUDA float)
+    raises. Memory from ``torch.empty`` is left unfilled, as outside the
+    mode: every buffer the port allocates so is written before it is read,
+    and filling the kernels' large scratch would only cost device time.
+    Scoped, not global: outside the trainer the kernels' yardsticks run as
+    PyTorch runs them by default. A cuBLAS product under the mode needs
+    ``CUBLAS_WORKSPACE_CONFIG``, which the package sets on import."""
+    was_on = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    was_fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was_on, warn_only=was_warn)
+        torch.utils.deterministic.fill_uninitialized_memory = was_fill
 
 
 class EarlyStopping:
@@ -190,6 +222,7 @@ class Trainer:
                                 lr=float(self.cfg.learning_rate), betas=ADAM_BETAS,
                                 eps=ADAM_EPS)
 
+    @deterministic_mode()
     def train_step(self, params: Params, optimizer: torch.optim.Optimizer,
                    batch: Batch) -> torch.Tensor:
         """One Adam step on a batch (a "bpr" batch with its negatives);
@@ -220,6 +253,7 @@ class Trainer:
                 self.table_count, lr, ADAM_BETAS[0], ADAM_BETAS[1], ADAM_EPS)
         return loss
 
+    @deterministic_mode()
     def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:
         """One pass over every user (user_rows) or every edge (bpr); returns
         the sum of the batch losses."""
@@ -238,6 +272,7 @@ class Trainer:
         return float(torch.stack(losses).sum())  # the epoch's one host sync
 
     @torch.no_grad()
+    @deterministic_mode()
     def evaluate(self, params: Params):
         """(val, test, rank_list): full-catalog top-``rank_topk`` ranking with
         seen items masked, then the metrics of both splits."""
@@ -255,6 +290,7 @@ class Trainer:
                                       self.val_split, self.test_split)
         return val, test, rank_list
 
+    @deterministic_mode()
     def run(self) -> Dict:
         cfg = self.cfg
         params = self.init_params()

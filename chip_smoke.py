@@ -61,8 +61,9 @@ Phases, each printing its own lines:
             (1024 x 28940 and 1024 x 15207, E 64, temperature 0.1), a
             ragged batch (381 x 15207), NCL's prototypes (1024 x 200 at
             temperature 0.01, k without gradient: no dk launch) and a
-            small ragged case (7 x 513); timed at the two SGL shapes
-            against the plain version and the library route
+            small ragged case (7 x 513); ptxas's registers and spills of
+            the E = 64 backward kernel (dq and dk); timed at the two SGL
+            shapes against the plain version and the library route
             (torch.logsumexp(q @ k.T) and its autograd, two calls)
 4. slice    CF_Diff export_artifact over every user (the kernel launch
             counts are reset just before and read just after), then the
@@ -101,7 +102,7 @@ Phases, each printing its own lines:
             loss and gradients
 16. profile device time by kernel over one SGL training step (bf16 R),
             split into K2, the propagation's GEMMs and fp32 copies, the
-            gathers and scatters, and the reductions
+            gathers, scatters and bag sums, and the reductions
 17. ncl     NCL cli.run: 1 epoch (four full-catalog terms a step, two of
             them over centroids without gradient: no dk launch for those)
 18. nstep   one NCL training step on a float32 R, kernel path against
@@ -128,6 +129,10 @@ Phases, each printing its own lines:
             on a float32 R kernel vs plain, the step profile
 27-29.      MGAT: cli.run 1 epoch (18 launches a step, 6 an eval), one step
             kernel vs plain, the step profile and its peak memory
+30. determinism  each of the seven models twice from a fresh Trainer on
+            one seed at the path's shapes (CF_Diff one epoch, the others
+            20 steps), then an evaluation: equal loss bits and equal rank
+            lists, one JSON line per model with both runs' seconds
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -245,6 +250,10 @@ ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 1034, 1034, 4
 BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 257, 1033, 4),
               (2, 4, 300, 4100, 4))
 TRAIN_EPOCHS, TRAIN_BATCH = 2, 1024
+# Phase 30: every model twice on one seed, at the path's shapes, for equal
+# bits (CF_Diff one epoch, the others this many steps, then an evaluation)
+DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT")
+DET_STEPS = 20
 
 
 def say(phase: str, msg: str) -> None:
@@ -494,6 +503,27 @@ def lse_bound(b, n, e, kernel):
     return bound_ms(flops, nbytes)
 
 
+def ptxas_entries(name: str, fragment: str):
+    """[(kernel, "Used N registers ...", "... spill stores, ... spill
+    loads")] of ptxas's log for csrc/{name}.cu, for each compiled entry
+    whose mangled name holds ``fragment``; [] when the library was built
+    before this run (no log)."""
+    from chaorec_tpu_torch import kernels
+
+    out, entry, spill = [], None, ""
+    for line in kernels.build(name).log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "registers" in line:
+            if fragment in entry:
+                out.append((entry, line.split(":", 1)[-1].strip(), spill))
+            entry = None
+    return out
+
+
 def lse_phase(gen, device) -> dict:
     """The streaming logsumexp kernels against the plain version and its
     autograd at every shape of LSE_SHAPES, then their times at SGL's two
@@ -533,6 +563,12 @@ def lse_phase(gen, device) -> dict:
         check(fwd_share <= 1.0 and max(rels) <= rel_tol, f"streaming_logsumexp {shape} disagrees")
         del q, k, g, got, grads, want, wgrads
 
+    ptxas = ptxas_entries("streaming_lse", "lse_bwd64_kernel")
+    for entry, regs, spill in ptxas:
+        kind = "dk" if "ILb1E" in entry else "dq"
+        say("kernel", f"ptxas (csrc/streaming_lse.cu) lse_bwd64_kernel, {kind}: {regs}; {spill}")
+    if not ptxas:
+        say("kernel", "ptxas: no log for lse_bwd64_kernel (built before this run)")
     results = {"max_abs_err": errs}
     for side, shape in LSE_MAIN.items():
         b, n, e, _, _ = shape
@@ -923,7 +959,7 @@ def freedom_phases(args, device, fds):
     from chaorec_tpu_torch.models.freedom import FREEDOM
     from chaorec_tpu_torch.ops.mxu import bdot
     from chaorec_tpu_torch.ops.row_adam import fused_row_adam
-    from chaorec_tpu_torch.train.loop import Trainer
+    from chaorec_tpu_torch.train.loop import Trainer, deterministic_mode
 
     # 10. freedom: the CLI's grid run of FREEDOM on sports ------------------
     combo = next(grid_combinations(load_yaml_config("FREEDOM")))
@@ -1010,7 +1046,8 @@ def freedom_phases(args, device, fds):
                    lambda: trainer.train_step(params, opt, fbatch),
                    os.path.join(args.out_dir, "chip_smoke_freedom_step_profile.txt"))
     device_profile("profile", "one FREEDOM pre_epoch (Gumbel top-k pruning, masked R, "
-                   "R^T, R R^T, R^T R)", lambda: fmodel.pre_epoch(params, 1),
+                   "R^T, R R^T, R^T R)",
+                   deterministic_mode()(lambda: fmodel.pre_epoch(params, 1)),  # as the trainer
                    os.path.join(args.out_dir, "chip_smoke_freedom_pre_epoch_profile.txt"))
     r, rt = fmodel.masked_r, fmodel._rt
     nu, ni = r.shape
@@ -1213,8 +1250,8 @@ def ssl_phases(args, device, fds) -> dict:
                     "GEMMs (the dense bf16 R propagation and its backward; k-means)": (
                         "gemm", "nvjet", "cutlass", "xmma"),
                     "bf16 -> fp32 copies (bdot's backward casts R)": ("copy",),
-                    "gathers, scatters and index_add_ (views, row gathers, k-means)": (
-                        "index", "scatter", "gather"),
+                    "gathers, scatters and bag sums (the views' hops, row gathers)": (
+                        "index", "scatter", "gather", "embeddingbag"),
                     "reductions (argmax, norms, sums)": ("reduce_kernel",)})
         del params, opt, model, trainer, init
         torch.cuda.empty_cache()
@@ -1507,9 +1544,9 @@ def seg_phases(args, device, fds) -> dict:
             lambda: trainer.train_step(params, opt, batch),
             os.path.join(args.out_dir, f"chip_smoke_{phase}_step_profile.txt"),
             groups={"K4 (prefix_scan: lookback_scan_kernel)": ("lookback_scan",),
-                    "gathers, scatters and index_add_ (seg_gather, permute gathers, pointer "
-                    "differences, row gathers and their backward)": (
-                        "index", "scatter", "gather"),
+                    "gathers, scatters and bag sums (seg_gather, permute gathers, pointer "
+                    "differences, row gathers and their backward, softmax sums)": (
+                        "index", "scatter", "gather", "embeddingbag"),
                     "GEMMs": ("gemm", "nvjet", "cutlass", "xmma"),
                     "reductions (norms, sums, softmax)": ("reduce_kernel", "softmax")})
         say("profile", f"{name} step peak device memory "
@@ -1517,6 +1554,74 @@ def seg_phases(args, device, fds) -> dict:
         del params, opt, model, trainer, init
         torch.cuda.empty_cache()
     return launches
+
+
+def path_config(name: str, args):
+    """(Config, dataset name) of ``name`` as this script's CLI runs train
+    it: CF_Diff at MODEL_CONFIG on the baby-sized set, every other model at
+    its Model_YAML file's first combo on the sports-sized set."""
+    from chaorec_tpu_torch.config import Config
+
+    if name == "CF_Diff":
+        return Config(data_path=DATASET, seed=args.seed, batch_size=TRAIN_BATCH,
+                      **MODEL_CONFIG), DATASET
+    return (Config(Model=name, data_path=FREEDOM_DATASET, seed=args.seed)
+            .replace(**first_combo(name)[0]), FREEDOM_DATASET)
+
+
+def seeded_run(cfg, ds, device, steps=None):
+    """(losses, rank list, seconds) of a fresh Trainer on ``cfg``'s seed:
+    pre_epoch, then one whole epoch (``steps`` None) or its first
+    ``steps`` batches, then ``evaluate``; all under the trainer's
+    deterministic mode, where the package has one."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.train import loop
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, ds, device)
+    trainer = loop.Trainer(model, ds, cfg)
+    params = trainer.init_params()
+    opt = trainer.make_optimizer(params)
+    with getattr(loop, "deterministic_mode", contextlib.nullcontext)():
+        model.pre_epoch(params, 0)
+        if steps is None:
+            losses = [trainer.train_epoch(params, opt)]
+        else:
+            batches = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)
+            losses = []
+            for batch in batches[:steps]:
+                neg = sample_negatives(trainer.generator, batch.users, trainer.history,
+                                       model.num_item, int(cfg.neg_candidates))
+                losses.append(trainer.train_step(params, opt,
+                                                 dataclasses.replace(batch, neg_items=neg)))
+            losses = torch.stack([x.detach() for x in losses]).cpu().numpy()
+        rank = trainer.evaluate(params)[2].cpu().numpy()
+    torch.cuda.synchronize()
+    return np.asarray(losses, np.float32), rank, time.perf_counter() - t0
+
+
+def determinism_phase(args, device, datasets) -> dict:
+    """Phase 30: each model twice from a fresh Trainer on one seed at the
+    path's shapes (CF_Diff one epoch, the others DET_STEPS steps), then an
+    evaluation: the losses' bits and the rank lists must be equal. One JSON
+    line per model; returns {model: that line}."""
+    out = {}
+    for name in DET_MODELS:
+        cfg, ds_name = path_config(name, args)
+        steps = None if name == "CF_Diff" else DET_STEPS
+        (l1, r1, s1), (l2, r2, s2) = (seeded_run(cfg, datasets[ds_name], device, steps)
+                                      for _ in range(2))
+        line = {"determinism": name, "steps": "1 epoch" if steps is None else steps,
+                "equal_loss_bits": bool(np.array_equal(l1.view(np.int32), l2.view(np.int32))),
+                "equal_rank_lists": bool(np.array_equal(r1, r2)),
+                "finite": bool(np.isfinite(l1).all()), "seconds": [round(s1, 3), round(s2, 3)]}
+        print(json.dumps(line), flush=True)
+        check(line["equal_loss_bits"] and line["equal_rank_lists"] and line["finite"],
+              f"{name}: two runs on one seed differ: {line}")
+        out[name] = line
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -1539,6 +1644,7 @@ def main(argv=None) -> int:
     from chaorec_tpu_torch.ops.fused_attn import (dropout_mask, fused_mha, fused_mha_bwd,
                                                   mha_reference, mha_reference_grads)
     from chaorec_tpu_torch.serve import Recommender, export_artifact
+    from chaorec_tpu_torch.train.loop import deterministic_mode
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1850,6 +1956,7 @@ def main(argv=None) -> int:
                  torch.ones(TRAIN_BATCH, device=device))
     step_state = model.init_state(device)
 
+    @deterministic_mode()  # as the trainer steps
     def train_step():
         opt.zero_grad(set_to_none=True)
         loss, _ = model.loss_stateful(leaves, step_state, full, step_gen)
@@ -1873,6 +1980,10 @@ def main(argv=None) -> int:
     ssl_launches = ssl_phases(args, device, fds)
     k4 = scan_phase(gen, device, fds)
     seg_launches = seg_phases(args, device, fds)
+    t0 = time.perf_counter()
+    determinism_phase(args, device, {DATASET: ds, FREEDOM_DATASET: fds})
+    say("determinism", f"{len(DET_MODELS)} models twice on one seed: equal loss bits and rank "
+        f"lists; {time.perf_counter() - t0:.1f} s added to the run")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's

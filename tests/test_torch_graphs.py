@@ -149,3 +149,61 @@ def test_masked_dense_r_matches_jax():
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-6, atol=1e-7)
     # every kept edge has weight, and nothing else does
     assert set(zip(*np.nonzero(tr.numpy()))) == set(map(tuple, edges[keep == 1]))
+
+
+# (users, items, edges as (user, item) pairs): a random list with a user
+# and an item without an edge; a star of 3000 edges into one item (three
+# levels of bags: 3000 edges, 94 chunks, 3 of those); each degree from 31
+# to 33 and 1024 to 1025 on the item side (a level's edge cases)
+def _bag_edges(case):
+    rs = np.random.default_rng(5)
+    if case == "random":
+        return _edges(seed=2)
+    if case == "star":
+        u = rs.integers(0, 200, 3000)
+        i = np.where(np.arange(3000) < 2990, 7, rs.integers(0, 12, 3000))
+        return np.stack([u, i], 1).astype(np.int32), 200, 12
+    degrees = [31, 32, 33, 1024, 1025, 0, 1]
+    i = np.repeat(np.arange(len(degrees)), degrees)
+    u = rs.integers(0, 90, i.shape[0])
+    return np.stack([u, i], 1).astype(np.int32), 90, len(degrees)
+
+
+@pytest.mark.parametrize("case", ["random", "star", "edges"])
+def test_edge_bags_hop_matches_index_add(case):
+    """The fixed-order bag sums of ``edge_propagate`` (and their backward,
+    the same sums of the cotangents, and the weights' gradient) against a
+    float64 index_add_ of the same hop: 1e-5 relative of each output's
+    largest entry; the same bits twice."""
+    edges, nu, ni = _bag_edges(case)
+    rs = np.random.default_rng(0)
+    eu, ei = torch.from_numpy(edges[:, 0]).long(), torch.from_numpy(edges[:, 1]).long()
+    bags = tdropout.EdgeBags.build(eu, ei, nu, ni)
+    w0 = rs.uniform(0.0, 1.0, edges.shape[0]).astype(np.float32)
+    xu0 = rs.standard_normal((nu, 8)).astype(np.float32)
+    xi0 = rs.standard_normal((ni, 8)).astype(np.float32)
+    cu, ci = (torch.from_numpy(rs.standard_normal((n, 8))) for n in (nu, ni))
+
+    def run(dtype, hop):
+        w, xu, xi = (torch.from_numpy(a).to(dtype).requires_grad_() for a in (w0, xu0, xi0))
+        out = hop(w, xu, xi)
+        (torch.sum(out[0] * cu.to(dtype)) + torch.sum(out[1] * ci.to(dtype))).backward()
+        return [t.detach() for t in out] + [w.grad, xu.grad, xi.grad]
+
+    def plain(w, xu, xi):
+        return (torch.zeros(nu, 8, dtype=xu.dtype).index_add(0, eu, w[:, None] * xi[ei]),
+                torch.zeros(ni, 8, dtype=xu.dtype).index_add(0, ei, w[:, None] * xu[eu]))
+
+    def kernel(w, xu, xi):
+        return tdropout.edge_propagate(eu, ei, w, xu, xi, nu, ni, bags)
+
+    got, again, want = run(torch.float32, kernel), run(torch.float32, kernel), run(
+        torch.float64, plain)
+    for g, a, r in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert (g.double() - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    if case == "star":
+        assert len(bags.items.levels) == 3 and len(bags.users.levels) == 1
+    empty = {"random": ni - 1, "edges": 5}.get(case)  # an item without an edge sums to 0
+    if empty is not None:
+        assert not got[1][empty].any()

@@ -93,6 +93,40 @@ def test_catalog_splits_cover_the_catalog(b, n, sms, want):
     assert splits * per >= tiles and (splits - 1) * per < tiles
 
 
+# (rows kept by a block, rows streamed, SMs, expected (splits, tiles per
+# split)): the E = 64 backward pair's layouts at the path's shapes. dq keeps
+# q and streams the catalog (SGL's user and item sides, the ragged last
+# batch, NCL's 200 prototypes, a small case); dk keeps the catalog and
+# streams q (B split where ceil(N / 128) blocks leave SMs idle: the item
+# side), and edge cases (one row, more SMs than rows, a catalog of one tile).
+@pytest.mark.parametrize("rows,streamed,sms,want", [
+    (1024, 28940, 132, (33, 14)), (1024, 15207, 132, (30, 8)), (381, 15207, 132, (80, 3)),
+    (1024, 200, 132, (4, 1)), (7, 513, 132, (9, 1)),
+    (28940, 1024, 132, (1, 16)), (15207, 1024, 132, (2, 8)), (15207, 381, 132, (2, 3)),
+    (513, 7, 132, (1, 1)), (1, 1, 132, (1, 1)), (1, 100000, 132, (261, 6)),
+    (100000, 1, 132, (1, 1)), (128, 64, 1, (1, 1))])
+def test_catalog_splits_cover_the_catalog_backward(rows, streamed, sms, want):
+    """backward_splits covers every streamed tile exactly once, leaves no
+    split empty, and gives the layout the kernels were timed at."""
+    splits, per = tlse.backward_splits(rows, streamed, sms)
+    tiles = -(-streamed // tlse.TILE)
+    assert (splits, per) == want
+    assert splits * per >= tiles and (splits - 1) * per < tiles
+    covered = [t for s in range(splits) for t in range(s * per, min((s + 1) * per, tiles))]
+    assert covered == list(range(tiles))
+    assert 1 <= splits <= 65535
+
+
+def test_backward_path_follows_width_and_alignment():
+    """lse_bwd64_kernel takes E 64 with q and k 16-byte aligned; any other
+    width or an unaligned view goes to the generic kernels."""
+    q, k = torch.zeros(8, 64), torch.zeros(20, 64)
+    assert tlse.takes_bwd64(q, k)
+    assert not tlse.takes_bwd64(torch.zeros(8, 32), torch.zeros(20, 32))
+    assert not tlse.takes_bwd64(torch.zeros(8 * 64 + 1)[1:].view(8, 64), k)
+    assert not tlse.takes_bwd64(q, torch.zeros(20 * 64 + 2)[2:].view(20, 64))
+
+
 @pytest.mark.parametrize("case", ["rank", "width", "empty", "devices", "wide", "dtype",
                                   "layout", "rows"])
 def test_check_args_refuses(case):
@@ -166,3 +200,112 @@ def test_cuda_kernels_are_deterministic():
         runs.append((lse, *torch.autograd.grad(lse.sum(), (q, k))))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def _card_inputs(b, n, e, temp, seed=0, offset=0):
+    """q unit rows over ``temp``, k unit rows, both requiring a gradient,
+    and g; ``offset`` floats in front of q's data (an unaligned view)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn(b, e, generator=gen, device="cuda"), dim=1)
+    k = torch.nn.functional.normalize(torch.randn(n, e, generator=gen, device="cuda"), dim=1)
+    if offset:
+        buf = torch.empty(b * e + offset, device="cuda")
+        buf[offset:].copy_((q / temp).view(-1))
+        q = buf[offset:].view(b, e)
+    else:
+        q = q / temp
+    return (q.requires_grad_(), k.requires_grad_(),
+            torch.randn(b, generator=gen, device="cuda"))
+
+
+def _hold_backward(b, n, e, temp, offset=0):
+    """dq and dk of the kernels against the plain version's autograd, each
+    within 1e-5 x max(1, 0.1 / temperature) of the largest plain entry."""
+    q, k, g = _card_inputs(b, n, e, temp, seed=b + n + e, offset=offset)
+    got = torch.autograd.grad(tlse.streaming_logsumexp(q, k), (q, k), g)
+    want = torch.autograd.grad(tlse.streaming_logsumexp_reference(q, k), (q, k), g)
+    rel = 1e-5 * max(1.0, 0.1 / temp)
+    for name, a, w in zip(("dq", "dk"), got, want):
+        assert a.dtype == w.dtype == torch.float32 and a.shape == w.shape
+        err = (a - w).abs().max().item()
+        assert err <= rel * w.abs().max().item(), (name, err, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [1, 3, 64, 100, 256])
+def test_cuda_backward_at_every_width(e):
+    """The generic kernels (E 1, 3, 100, 256) and the E = 64 engine."""
+    _on_card()
+    _hold_backward(300, 2000, e, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 381, 1024])
+@pytest.mark.parametrize("n", [1, 200, 513, 28940])
+def test_cuda_backward_at_ragged_shapes(b, n):
+    """The E = 64 engine at every B against every N: one row, one column,
+    partial tiles on both sides, SGL's user side."""
+    _on_card()
+    _hold_backward(b, n, 64, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1024, 200), (381, 15207)])
+def test_cuda_backward_with_logits_to_100(b, n):
+    """Unit rows over a temperature of 0.01: logits reach +-100."""
+    _on_card()
+    _hold_backward(b, n, 64, 0.01)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_of_an_unaligned_q():
+    """A q view 4 bytes off a 16-byte boundary takes the generic kernels."""
+    _on_card()
+    q, k, _ = _card_inputs(7, 513, 64, 0.1, offset=1)
+    assert not tlse.takes_bwd64(q, k)
+    _hold_backward(70, 513, 64, 0.1, offset=1)
+
+
+def _backward_pair(q, k, g):
+    lse = tlse.streaming_lse_fwd(q, k)
+    return tlse.streaming_lse_dq(q, k, lse, g), tlse.streaming_lse_dk(q, k, lse, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1024, 28940), (1024, 15207), (381, 15207)])
+def test_cuda_backward_bits_in_calls_and_graph_replays(b, n):
+    """The same bits from two calls and from two replays of one CUDA graph
+    (which also equal the calls'): no atomics, and the splits' combine
+    passes sum in a fixed order."""
+    _on_card()
+    q, k, g = (t.detach() for t in _card_inputs(b, n, 64, 0.1))
+    first, second = _backward_pair(q, k, g), _backward_pair(q, k, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _backward_pair(q, k, g)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _backward_pair(q, k, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay1 = [t.clone() for t in out]
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b_, c, d in zip(first, second, replay1, out):
+        assert torch.equal(a, b_) and torch.equal(a, c) and torch.equal(a, d)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_back_to_back_shapes():
+    """Calls at two shapes in turn (other splits, other scratch sizes) give
+    what each shape gives alone."""
+    _on_card()
+    small = [t.detach() for t in _card_inputs(381, 15207, 64, 0.1, seed=1)]
+    large = [t.detach() for t in _card_inputs(1024, 28940, 64, 0.1, seed=2)]
+    alone = [_backward_pair(*small), _backward_pair(*large)]
+    for _ in range(2):
+        for inputs, want in zip((small, large), alone):
+            for a, w in zip(_backward_pair(*inputs), want):
+                assert torch.equal(a, w)
