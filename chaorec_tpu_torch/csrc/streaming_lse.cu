@@ -17,7 +17,7 @@
 // cores, as the TPU kernel sums them in fp32), then by the shared-memory
 // reads that feed the FMAs, and by one exp per logit.
 //
-// Forward, and the backward pair at E != 64 (the generic path). A block of
+// The generic path (E != 64, or an unaligned q or k). A block of
 // 256 threads computes a 64 x 64 tile of logits at a time from a 64-row q
 // tile and a 64-row k tile staged in shared memory, each thread a 4 x 4
 // register tile (rows ty + 16 i, columns tx + 16 j), with 16-byte shared
@@ -42,34 +42,48 @@
 //   walks every q tile, with lse and g staged beside it, accumulating
 //   (p * g)^T . q_tile in registers; each dk row is written once.
 //
-// The backward pair at E = 64 (the path's only width), lse_bwd64_kernel:
-// one tile engine for dq and dk, which differ only in which operand stays
-// (dq: 128 q rows a block, k streamed; dk: 128 k rows, q streamed), in
-// where lse and g enter (dq: per staying row, g in the combine pass; dk:
-// per streamed row, both in p) and in which side is split across blocks.
-// - 128 threads (4 warps), 2 blocks an SM (105 KB of shared memory each).
-//   Each thread owns 8 staying rows (warp w: rows 32 w + (lane / 8) + 4 i)
-//   and, of each 64-row streamed tile, 8 columns (lane % 8 + 8 j): an 8 x 8
-//   register tile of logits, then of p, and an 8 x 8 tile of its rows'
-//   output (columns 4 (lane % 8) .. + 3 and 32 + the same). Each 4-wide
-//   step of E (or of the tile) reads 16 float4 from shared memory for 256
-//   FMAs: 4 FMAs a word read by a thread (the generic path's 4 x 4 tile
-//   gives 2), and a warp's loads of one row are broadcasts to 8 or 4 of
-//   its threads. Every such load falls on distinct banks (row strides 68
-//   and 72 floats: 4 and 8 mod 32).
+// At E = 64 (the path's only width), one tile engine for all three, in
+// namespace e64: lse_fwd64_kernel and lse_bwd64_kernel.
+// - 128 threads (4 warps). A block keeps 128 rows of one side (the staying
+//   tile: q for the forward and dq, k for dk) and streams the other in
+//   64-row tiles. Each thread owns 8 staying rows (warp w: rows
+//   32 w + (lane / 8) + 4 i) and, of each streamed tile, 8 columns
+//   (lane % 8 + 8 j): an 8 x 8 register tile of logits. Each 4-wide step of
+//   E reads 16 float4 from shared memory for 256 FMAs: 4 FMAs a word read
+//   by a thread (the generic path's 4 x 4 tile gives 2), and a warp's loads
+//   of one row are broadcasts to 8 or 4 of its threads. Every such load
+//   falls on distinct banks (row strides 68 and 72 floats: 4 and 8 mod 32).
 // - Streamed tiles come by cp.async (16 bytes a copy, rows past the end
 //   zero-filled) into a ring of two stages: tile t + 1 is in flight while
 //   tile t is computed. Two block barriers a tile (the stage has landed;
 //   its readers are done).
-// - p goes from a thread's logit tile to the 8 threads that share its rows
-//   (all in its warp) through the warp's own slab of shared memory (32 rows
-//   x 64), behind a __syncwarp, not a block barrier.
 // - The streamed side is split across blocks (grid = staying tiles x
-//   splits, about two blocks per SM): dq splits the catalog as before; dk
-//   splits B where ceil(N / 128) blocks would leave SMs idle (the item
-//   side's 119 tiles on 132 SMs). Each split writes a partial, and a
-//   second pass sums the splits in order (dq then scales by g); one split
-//   writes dk directly.
+//   splits): the forward and dq split the catalog; dk splits B where
+//   ceil(N / 128) blocks would leave SMs idle (the item side's 119 tiles on
+//   132 SMs). Each split writes a partial, and a second pass combines the
+//   splits in order (the forward merges (max, sum) pairs, dq sums and
+//   scales by g, dk sums); one dk split writes dk directly.
+// - Forward (lse_fwd64_kernel, 68 KB of shared memory and 248 registers,
+//   2 blocks an SM; held to 168 registers for 3, it spilled and ran SGL's
+//   user side 2% slower): each thread keeps a running (max, sum) for each
+//   of its 8 rows. A tile takes the max of the row's 8 logits first, then
+//   one rescale exp2 of the old sum and 8 exp2 of fmaf(logit, log2 e,
+//   -max log2 e): one exp a logit and one a row a tile (the generic kernel
+//   rescales once every 4 logits). Columns past N (the zero-filled rows of the catalog's last
+//   tile) are set to -inf in that tile only. At the end the 8 threads of a
+//   row (lane % 8) merge their pairs by shuffles (xor 1, 2, 4, in that
+//   order) and one writes the split's pair. Its grid is one wave, laid
+//   out so that the busiest SM computes the fewest tiles
+//   (ops/streaming_lse.py:forward_splits; 33 x 8 blocks of 14 tiles at
+//   SGL's user side, 30 x 8 of 8 at the item side).
+// - Backward (lse_bwd64_kernel, 105 KB, 2 blocks an SM): dq and dk differ
+//   only in which operand stays, where lse and g enter (dq: per staying
+//   row, g in the combine pass; dk: per streamed row, both in p) and which
+//   side is split. The logit tile becomes p, which goes from a thread to
+//   the 8 threads that share its rows (all in its warp) through the warp's
+//   own slab of shared memory (32 rows x 64), behind a __syncwarp, not a
+//   block barrier; then an 8 x 8 tile of its rows' output (columns
+//   4 (lane % 8) .. + 3 and 32 + the same) takes p . the streamed tile.
 // The E = 64 path needs q and k 16-byte aligned (cp.async); the wrapper
 // sends any other q or k down the generic path.
 // No atomics: the same inputs on the same card give the same bits.
@@ -394,7 +408,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // The backward pair at E = 64: lse_bwd64_kernel (see the note at the top).
 
-namespace bwd64 {
+namespace e64 {
 
 constexpr int kE = 64;
 constexpr int kThreads = 128;  // 4 warps
@@ -409,6 +423,10 @@ constexpr int kSlabFloats = 32 * kPLd;
 // each stage's rows
 constexpr int kSmemBytes = (kStayFloats + 2 * kStageFloats + 4 * kSlabFloats + 2 * 2 * kCols) *
                            static_cast<int>(sizeof(float));
+// the forward: the staying tile and two streamed stages (68 KB, 2 blocks an SM)
+constexpr int kFwdSmemBytes = (kStayFloats + 2 * kStageFloats) * static_cast<int>(sizeof(float));
+constexpr int kFwdBlocksPerSm = 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -600,6 +618,145 @@ __global__ void split_sum_kernel(const float* __restrict__ part, float* __restri
   out[idx] = s;
 }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// grid (q row tiles, splits): per q row, the (max, sum of exp(logit - max))
+// pair over split y's k tiles, into part_m and part_s (splits, B).
+__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
+    lse_fwd64_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     float* __restrict__ part_m, float* __restrict__ part_s, int b, int n,
+                     int tiles_per_split) {
+  extern __shared__ float4 smem4[];
+  float* ys = reinterpret_cast<float*>(smem4);  // 128 q rows
+  float* ss = ys + kStayFloats;                  // two k stages
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, cg = lane & 7;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int split = blockIdx.y;
+  const int n_tiles = (n + kCols - 1) / kCols;
+  const int t0 = split * tiles_per_split;
+  const int t1 = min(t0 + tiles_per_split, n_tiles);
+
+  stage_rows<kRows>(ys, q, row0, b);
+  stage_rows<kCols>(ss, k, static_cast<long long>(t0) * kCols, n);
+  cp_async_commit();
+  float m[8], l[8];  // this thread's running (max, sum) of rows 32 w + rg + 4 i
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+  }
+
+  const float* ya = ys + (warp * 32 + rg) * kLd;
+  for (int t = t0; t < t1; ++t) {
+    const int cur = (t - t0) & 1;
+    if (t + 1 < t1) {  // stage cur ^ 1's readers (tile t - 1) passed the last barrier
+      stage_rows<kCols>(ss + (cur ^ 1) * kStageFloats, k, static_cast<long long>(t + 1) * kCols,
+                        n);
+    }
+    cp_async_commit();  // possibly empty: the wait below then still leaves tile t landed
+    cp_async_wait_all_but_one();
+    __syncthreads();
+    const float* ts = ss + cur * kStageFloats;
+
+    // logits: s[i][j] = q row (32 w + rg + 4 i) . k row (64 t + cg + 8 j)
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    }
+    const float* tb = ts + cg * kLd;
+#pragma unroll 2
+    for (int e = 0; e < kE; e += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(ya + 4 * i * kLd + e);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 bv = *reinterpret_cast<const float4*>(tb + 8 * j * kLd + e);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float v = s[i][j];
+          v = fmaf(a[i].x, bv.x, v);
+          v = fmaf(a[i].y, bv.y, v);
+          v = fmaf(a[i].z, bv.z, v);
+          v = fmaf(a[i].w, bv.w, v);
+          s[i][j] = v;
+        }
+      }
+    }
+    if (static_cast<long long>(t + 1) * kCols > n) {  // the catalog's last tile, partial
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (t * kCols + cg + 8 * j >= n) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s[i][j] = -INFINITY;
+        }
+      }
+    }
+    // the online rescale: one exp2 a row for the old sum, one a logit
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float tmax = s[i][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, s[i][j]);
+      const float mn = fmaxf(m[i], tmax);
+      const float neg = -mn * kLog2e;
+      float acc = l[i] * ex2((m[i] - mn) * kLog2e);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc += ex2(fmaf(s[i][j], kLog2e, neg));
+      m[i] = mn;
+      l[i] = acc;
+    }
+    __syncthreads();  // stage cur is free again
+  }
+  // the 8 threads of a row are lanes 8 rg .. 8 rg + 7 of one warp
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
+      merge(m[i], l[i], mo, lo);
+    }
+  }
+  if (cg == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long r = row0 + warp * 32 + rg + 4 * i;
+      if (r < b) {
+        part_m[split * static_cast<long long>(b) + r] = m[i];
+        part_s[split * static_cast<long long>(b) + r] = l[i];
+      }
+    }
+  }
+}
+
+// lse_fwd64_kernel's shared memory allowed, with the SM's carveout at its
+// most shared memory, so that kFwdBlocksPerSm blocks fit.
+cudaError_t allow_fwd_smem() {
+  cudaError_t err = cudaFuncSetAttribute(
+      lse_fwd64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(lse_fwd64_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+cudaError_t launch_fwd(const float* q, const float* k, float* part_m, float* part_s, int b, int n,
+                       int splits, int tiles_per_split, cudaStream_t s) {
+  cudaError_t err = allow_fwd_smem();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((b + kRows - 1) / kRows, splits);
+  lse_fwd64_kernel<<<grid, kThreads, kFwdSmemBytes, s>>>(q, k, part_m, part_s, b, n,
+                                                         tiles_per_split);
+  return cudaGetLastError();
+}
+
 bool takes(const void* q, const void* k, int e) {
   const unsigned long long bits =
       reinterpret_cast<unsigned long long>(q) | reinterpret_cast<unsigned long long>(k);
@@ -619,7 +776,7 @@ cudaError_t launch(const float* stay, const float* stream, const float* lse, con
   return cudaGetLastError();
 }
 
-}  // namespace bwd64
+}  // namespace e64
 
 int smem_bytes(int e4, int buffers_of_rows, bool p_tile) {
   return (buffers_of_rows * kTile * row_stride(e4) + (p_tile ? kTile * kPLd : 0)) *
@@ -669,8 +826,11 @@ cudaError_t launch_dk(const float* q, const float* k, const float* lse, const fl
 }  // namespace
 
 // lse (b,) = logsumexp(q (b, e) . k (n, e)^T) per row. part_m and part_s:
-// (splits, b) fp32 scratch. Returns a cudaError_t: cudaErrorInvalidValue
-// for a shape or split it does not take, else the launches'.
+// (splits, b) fp32 scratch; splits x tiles_per_split cover the catalog's
+// 64-row tiles. At e 64 with q and k 16-byte aligned, lse_fwd64_kernel (128
+// q rows a block), else the generic lse_fwd_kernel (64 q rows a block).
+// Returns a cudaError_t: cudaErrorInvalidValue for a shape or split it does
+// not take, else the launches'.
 extern "C" int chaorec_lse_fwd(const float* q, const float* k, float* part_m, float* part_s,
                                float* lse, int b, int n, int e, int splits, int tiles_per_split,
                                void* stream) {
@@ -678,13 +838,20 @@ extern "C" int chaorec_lse_fwd(const float* q, const float* k, float* part_m, fl
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e4 = (e + 3) / 4 * 4;
-  const int bytes = smem_bytes(e4, 2, false);
-  cudaError_t err = allow_smem(lse_fwd_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((b + kTile - 1) / kTile, splits);
-  lse_fwd_kernel<<<grid, kThreads, bytes, s>>>(q, k, part_m, part_s, b, n, e, e4, tiles_per_split);
-  err = cudaGetLastError();
+  cudaError_t err;
+  if (e64::takes(q, k, e)) {
+    err = e64::launch_fwd(q, k, part_m, part_s, b, n, splits, tiles_per_split, s);
+  } else {
+    const int e4 = (e + 3) / 4 * 4;
+    const int bytes = smem_bytes(e4, 2, false);
+    err = allow_smem(lse_fwd_kernel, bytes);
+    if (err == cudaSuccess) {
+      const dim3 grid((b + kTile - 1) / kTile, splits);
+      lse_fwd_kernel<<<grid, kThreads, bytes, s>>>(q, k, part_m, part_s, b, n, e, e4,
+                                                   tiles_per_split);
+      err = cudaGetLastError();
+    }
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   lse_combine_kernel<<<(b + 255) / 256, 256, 0, s>>>(part_m, part_s, lse, b, splits);
   return static_cast<int>(cudaGetLastError());
@@ -703,8 +870,8 @@ extern "C" int chaorec_lse_dq(const float* q, const float* k, const float* lse, 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int e4 = (e + 3) / 4 * 4;
   cudaError_t err;
-  if (bwd64::takes(q, k, e)) {
-    err = bwd64::launch<false>(q, k, lse, g, part, b, n, splits, tiles_per_split, s);
+  if (e64::takes(q, k, e)) {
+    err = e64::launch<false>(q, k, lse, g, part, b, n, splits, tiles_per_split, s);
   } else {
     switch ((e4 + 63) / 64) {
       case 1: err = launch_dq<1>(q, k, lse, part, b, n, e, e4, splits, tiles_per_split, s); break;
@@ -732,12 +899,12 @@ extern "C" int chaorec_lse_dk(const float* q, const float* k, const float* lse, 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bwd64::takes(q, k, e)) {
-    cudaError_t err = bwd64::launch<true>(k, q, lse, g, splits == 1 ? dk : part, n, b, splits,
+  if (e64::takes(q, k, e)) {
+    cudaError_t err = e64::launch<true>(k, q, lse, g, splits == 1 ? dk : part, n, b, splits,
                                           tiles_per_split, s);
     if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
     const long long total = static_cast<long long>(n) * e;
-    bwd64::split_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+    e64::split_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
         part, dk, total, splits);
     return static_cast<int>(cudaGetLastError());
   }
@@ -751,4 +918,13 @@ extern "C" int chaorec_lse_dk(const float* q, const float* k, const float* lse, 
     default: err = launch_dk<4>(q, k, lse, g, dk, b, n, e, e4, s); break;
   }
   return static_cast<int>(err);
+}
+
+// Blocks of lse_fwd64_kernel that one SM holds at once (after allowing its
+// shared memory), into *blocks. Returns a cudaError_t.
+extern "C" int chaorec_lse_fwd64_blocks_per_sm(int* blocks) {
+  const cudaError_t err = e64::allow_fwd_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, e64::lse_fwd64_kernel, e64::kThreads, e64::kFwdSmemBytes));
 }

@@ -24,6 +24,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -85,3 +87,9 @@ def build(name: str) -> Built:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     return ctypes.CDLL(str(build(name).path))
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of CUDA card ``index``: the kernels size their grids by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -25,6 +25,7 @@ Both update p, m and v in place (the JAX package's version returns new
 arrays; in place saves a copy of the table per step). ``count`` is an int32
 tensor on the table's device, read there, so a step needs no host sync.
 ``fused_row_adam.launches`` counts kernel launches; CPU calls count nothing.
+The kernel's grid is ``tile_rows`` rows a block (``launch_grid``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ import torch
 from chaorec_tpu_torch import kernels
 
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+MAX_TILE_ROWS = 512  # csrc/row_adam.cu's shared row -> slot map
+TILE_BYTES = 16384  # of each of p, m and v a block sweeps, about
+FEW_WAVES = 4  # a grid of fewer waves of resident blocks is cut into whole waves
 
 
 def prepare_sorted_rows(rows: torch.Tensor, g_rows: torch.Tensor,
@@ -94,15 +98,47 @@ def row_adam_reference(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
 
 
 @functools.cache
-def _kernel_fn():
-    fn = kernels.load("row_adam").chaorec_row_adam
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load("row_adam")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.chaorec_row_adam.argtypes = [ptr] * 6 + [ctypes.c_longlong] + [i32] * 4 + [f32] * 6 + [ptr]
+    lib.chaorec_row_adam_blocks_per_sm.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+    for fn in (lib.chaorec_row_adam, lib.chaorec_row_adam_blocks_per_sm):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def tile_rows(n: int, d: int, elem_bytes: int, sm_count: int, blocks_per_sm: int) -> int:
+    """Rows a block of the kernel sweeps: the whole rows of about
+    TILE_BYTES of each table (1 to MAX_TILE_ROWS). Where that grid would
+    take fewer than FEW_WAVES waves of the card's ``sm_count`` x
+    ``blocks_per_sm`` resident blocks, the height is set so that the grid
+    fills the nearest whole number of waves (at least one): a narrow table
+    still fills the card, and no wave runs mostly empty."""
+    rows = max(1, min(MAX_TILE_ROWS, TILE_BYTES // (d * elem_bytes)))
+    slots = sm_count * blocks_per_sm
+    blocks = -(-n // rows)
+    if blocks < FEW_WAVES * slots:
+        waves = max(1, round(blocks / slots))
+        rows = max(1, min(MAX_TILE_ROWS, -(-n // (waves * slots))))
+    return rows
+
+
+def launch_grid(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                g_agg: torch.Tensor) -> Tuple[int, int, int]:
+    """(rows a block, blocks, blocks an SM holds) of the kernel's launch on
+    these CUDA tables, on the current device: ``tile_rows`` with the
+    occupancy of the kernel instance the tables take."""
+    resident = ctypes.c_int(0)
+    err = _lib().chaorec_row_adam_blocks_per_sm(
+        table.data_ptr(), m.data_ptr(), v.data_ptr(), g_agg.data_ptr(), table.shape[1],
+        int(table.dtype == torch.bfloat16), ctypes.byref(resident))
+    if err != 0:
+        raise RuntimeError(f"occupancy query of the row_adam kernel failed: cudaError {err}")
+    n, d = table.shape
+    rows = tile_rows(n, d, table.element_size(), kernels.sm_count(table.device.index),
+                     resident.value)
+    return rows, -(-n // rows), resident.value
 
 
 def check_args(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
@@ -148,10 +184,11 @@ def fused_row_adam(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     check_args(table, m, v, rows_sorted, g_agg, count)
     n, d = table.shape
     with torch.cuda.device(table.device):
-        err = _kernel_fn()(
+        rows = launch_grid(table, m, v, g_agg)[0]
+        err = _lib().chaorec_row_adam(
             table.data_ptr(), m.data_ptr(), v.data_ptr(), rows_sorted.data_ptr(),
             g_agg.data_ptr(), count.data_ptr(), n, d, rows_sorted.shape[0],
-            int(table.dtype == torch.bfloat16), lr, b1, b2, 1.0 - b1, 1.0 - b2, eps,
+            int(table.dtype == torch.bfloat16), rows, lr, b1, b2, 1.0 - b1, 1.0 - b2, eps,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

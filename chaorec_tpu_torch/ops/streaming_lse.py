@@ -25,9 +25,10 @@ picks the path:
 
 Each wrapper counts its launches in ``.launches`` (one per call; a call
 runs the kernel and its short combine pass, which dk skips when B is not
-split). At E = 64 the backward pair runs one tile engine
-(``lse_bwd64_kernel``, laid out by ``backward_splits``); at other widths
-the generic kernels (laid out by ``catalog_splits``, as the forward). The
+split). At E = 64 with q and k 16-byte aligned (``takes_e64``) all three
+run one tile engine (``lse_fwd64_kernel``, laid out by ``forward_splits``;
+``lse_bwd64_kernel``, laid out by ``backward_splits``); at other widths
+the generic kernels (laid out by ``catalog_splits``). The
 TPU layout (``n_valid``, ``_pad_rows``, ``TILE_B``/``TILE_N``) is not
 ported: the kernels mask the ragged edges themselves. The TPU's size gate
 ``use_pallas_lse`` is not ported either.
@@ -45,11 +46,13 @@ from chaorec_tpu_torch import kernels
 
 TILE = 64  # rows of a q tile and of a k tile in the kernels
 MAX_E = 256
-BLOCKS_PER_SM = 4  # the forward and dq split the catalog to about this many blocks per SM
-# The backward pair at E = 64 (lse_bwd64_kernel): a block keeps this many
-# rows of one side (dq: q, dk: k) and streams the other in TILE-row tiles,
-# split across blocks to about BWD_BLOCKS_PER_SM blocks per SM.
-BWD_E, BWD_ROWS, BWD_BLOCKS_PER_SM = 64, 128, 2
+BLOCKS_PER_SM = 4  # the generic forward and dq split the catalog to about this many blocks per SM
+# The E = 64 engine (lse_fwd64_kernel, lse_bwd64_kernel): a block keeps
+# ENGINE_ROWS rows of one side (forward and dq: q, dk: k) and streams the
+# other in TILE-row tiles, split across blocks. One SM holds
+# FWD_BLOCKS_PER_SM forward blocks (68 KB of shared memory each); dq and dk
+# split to about BWD_BLOCKS_PER_SM blocks per SM (105 KB each).
+ENGINE_E, ENGINE_ROWS, FWD_BLOCKS_PER_SM, BWD_BLOCKS_PER_SM = 64, 128, 2, 2
 
 
 def streaming_logsumexp_reference(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -68,19 +71,16 @@ def _lib() -> ctypes.CDLL:
     lib.chaorec_lse_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.chaorec_lse_dq.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.chaorec_lse_dk.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    for fn in (lib.chaorec_lse_fwd, lib.chaorec_lse_dq, lib.chaorec_lse_dk):
+    lib.chaorec_lse_fwd64_blocks_per_sm.argtypes = [ptr]
+    for fn in (lib.chaorec_lse_fwd, lib.chaorec_lse_dq, lib.chaorec_lse_dk,
+               lib.chaorec_lse_fwd64_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def catalog_splits(b: int, n: int, sm_count: int) -> Tuple[int, int]:
     """(splits, tiles per split) of the catalog's 64-row tiles for the
-    forward and dq grids: enough splits that (B / 64) row tiles times the
+    generic forward and dq grids: enough splits that (B / 64) row tiles times the
     splits give about ``BLOCKS_PER_SM`` blocks per SM, each split non-empty."""
     row_tiles, col_tiles = -(-b // TILE), -(-n // TILE)
     splits = min(col_tiles, max(1, -(-BLOCKS_PER_SM * sm_count // row_tiles)))
@@ -90,20 +90,62 @@ def catalog_splits(b: int, n: int, sm_count: int) -> Tuple[int, int]:
 
 def backward_splits(rows: int, streamed: int, sm_count: int) -> Tuple[int, int]:
     """(splits, tiles per split) of the streamed side's TILE-row tiles for
-    the E = 64 backward kernels, whose blocks keep BWD_ROWS ``rows`` each:
-    about BWD_BLOCKS_PER_SM blocks per SM in all, each split non-empty. dq
-    keeps q and streams k (the catalog), dk keeps k and streams q."""
-    row_tiles, col_tiles = -(-rows // BWD_ROWS), -(-streamed // TILE)
+    the E = 64 backward kernels, whose blocks keep ENGINE_ROWS ``rows``
+    each: about BWD_BLOCKS_PER_SM blocks per SM in all, each split
+    non-empty. dq keeps q and streams k (the catalog), dk keeps k and
+    streams q."""
+    row_tiles, col_tiles = -(-rows // ENGINE_ROWS), -(-streamed // TILE)
     splits = min(col_tiles, max(1, int(BWD_BLOCKS_PER_SM * sm_count / row_tiles + 0.5)))
     per = -(-col_tiles // splits)
     return -(-col_tiles // per), per
 
 
-def takes_bwd64(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """Whether the backward pair runs lse_bwd64_kernel (E 64, q and k
-    16-byte aligned for its cp.async copies), as the C entry points decide;
-    else their generic kernels."""
-    return q.shape[1] == BWD_E and q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0
+@functools.lru_cache(maxsize=None)
+def forward_splits(b: int, n: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the catalog's TILE-row tiles for
+    lse_fwd64_kernel, whose blocks keep ENGINE_ROWS q rows each. The grid
+    is one wave (at most FWD_BLOCKS_PER_SM blocks on an SM, unless B alone
+    needs more). Of those layouts, the one whose busiest SM computes the
+    fewest tiles (tiles per split x its blocks, where one block counts as
+    two: its 4 warps keep the SM's FMA pipes half busy), then the one with
+    the fewest blocks on that SM (each stages its q rows once)."""
+    row_tiles, col_tiles = -(-b // ENGINE_ROWS), -(-n // TILE)
+    best = None
+    for per in range(1, col_tiles + 1):
+        splits = -(-col_tiles // per)
+        on_sm = -(-row_tiles * splits // sm_count)
+        if on_sm > FWD_BLOCKS_PER_SM and per < col_tiles:
+            continue
+        key = (per * max(on_sm, 2), on_sm)
+        if best is None or key < best[0]:
+            best = (key, splits, per)
+    return best[1], best[2]
+
+
+def takes_e64(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the C entry points run the E = 64 engine (E 64, q and k
+    16-byte aligned for its cp.async copies); else their generic kernels."""
+    return q.shape[1] == ENGINE_E and q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0
+
+
+def forward_layout(q: torch.Tensor, k: torch.Tensor, sm_count: int) -> Tuple[str, int, int]:
+    """(kernel, splits, tiles per split) of the forward at q and k, as the C
+    entry point routes it: lse_fwd64_kernel where ``takes_e64``, else the
+    generic lse_fwd_kernel."""
+    b, n = q.shape[0], k.shape[0]
+    if takes_e64(q, k):
+        return ("lse_fwd64_kernel", *forward_splits(b, n, sm_count))
+    return ("lse_fwd_kernel", *catalog_splits(b, n, sm_count))
+
+
+def fwd64_blocks_per_sm() -> int:
+    """Blocks of lse_fwd64_kernel one SM of the current card holds at once
+    (the CUDA occupancy calculator, after its shared memory is allowed)."""
+    blocks = ctypes.c_int(0)
+    err = _lib().chaorec_lse_fwd64_blocks_per_sm(ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query of lse_fwd64_kernel failed: cudaError {err}")
+    return blocks.value
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor) -> None:
@@ -147,7 +189,7 @@ def streaming_lse_fwd(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     dev = q.device
     b, e = q.shape
     n = k.shape[0]
-    splits, per = catalog_splits(b, n, _sm_count(dev.index))
+    _, splits, per = forward_layout(q, k, kernels.sm_count(dev.index))
     part = torch.empty((2, splits, b), dtype=torch.float32, device=dev)
     lse = torch.empty(b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -166,8 +208,8 @@ def streaming_lse_dq(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
     dev = q.device
     b, e = q.shape
     n = k.shape[0]
-    sms = _sm_count(dev.index)
-    splits, per = backward_splits(b, n, sms) if takes_bwd64(q, k) else catalog_splits(b, n, sms)
+    sms = kernels.sm_count(dev.index)
+    splits, per = backward_splits(b, n, sms) if takes_e64(q, k) else catalog_splits(b, n, sms)
     part = torch.empty((splits, b, e), dtype=torch.float32, device=dev)
     dq = torch.empty((b, e), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -186,8 +228,8 @@ def streaming_lse_dk(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
     dev = q.device
     b, e = q.shape
     n = k.shape[0]
-    if takes_bwd64(q, k):
-        splits, per = backward_splits(n, b, _sm_count(dev.index))
+    if takes_e64(q, k):
+        splits, per = backward_splits(n, b, kernels.sm_count(dev.index))
     else:  # the generic kernel walks all of B in one block
         splits, per = 1, -(-b // TILE)
     dk = torch.empty((n, e), dtype=torch.float32, device=dev)

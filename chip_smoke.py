@@ -55,16 +55,18 @@ Phases, each printing its own lines:
             bf16 storage, three steps with duplicates, sentinels, tile
             edges, rows 0 and N-1, B 2048 and 1; timed against its plain
             version and against zeros + index_add_ + a fused torch Adam,
-            fp32 and bf16;
+            fp32 and bf16, with each shape's tile height and grid;
             streaming_logsumexp's forward, dq and dk kernels against the
             plain version and its autograd at SGL's user and item sides
             (1024 x 28940 and 1024 x 15207, E 64, temperature 0.1), a
             ragged batch (381 x 15207), NCL's prototypes (1024 x 200 at
             temperature 0.01, k without gradient: no dk launch) and a
             small ragged case (7 x 513); ptxas's registers and spills of
-            the E = 64 backward kernel (dq and dk); timed at the two SGL
-            shapes against the plain version and the library route
-            (torch.logsumexp(q @ k.T) and its autograd, two calls)
+            the E = 64 engine's forward and backward (dq and dk) kernels,
+            and the forward's blocks an SM; timed at the two SGL shapes
+            and NCL's prototypes (forward and dq) against the plain
+            version and the library route (torch.logsumexp(q @ k.T) and
+            its autograd, two calls), each naming the kernel that ran
 4. slice    CF_Diff export_artifact over every user (the kernel launch
             counts are reset just before and read just after), then the
             kernel path's scores against the plain path's and the CPU's
@@ -215,6 +217,8 @@ LSE_SHAPES = ((1024, 28940, 64, 0.1, True), (1024, 15207, 64, 0.1, True),
               (381, 15207, 64, 0.1, True), (1024, 200, 64, 0.01, False),
               (7, 513, 64, 0.1, True))
 LSE_MAIN = {"user": LSE_SHAPES[0], "item": LSE_SHAPES[1]}
+# timed too: NCL's prototype term (forward and dq; its k needs no gradient)
+LSE_TIMED = {**LSE_MAIN, "prototypes": LSE_SHAPES[3]}
 # Forward: rtol/atol 1e-5 against torch.logsumexp of the fp32 product (the
 # kernel sums the logits and the exps in another order). dq and dk: max abs
 # error within 1e-5 of the largest plain entry (as BWD_REL_TOL), times
@@ -363,7 +367,7 @@ def row_adam_phase(gen, device) -> dict:
     from chaorec_tpu_torch.ops.indexed_adam import (init_table_state, row_adam_update,
                                                     table_adam_update)
     from chaorec_tpu_torch.ops.row_adam import (fused_row_adam, prepare_sorted_rows,
-                                                row_adam_reference)
+                                                launch_grid, row_adam_reference)
 
     results = {}
     for name, (n, d) in ROW_ADAM_SHAPES:
@@ -411,6 +415,7 @@ def row_adam_phase(gen, device) -> dict:
             count = torch.tensor(5, dtype=torch.int32, device=device)
             r_s, g_s = prepare_sorted_rows(rows, g, n)
             distinct = int((r_s < n).sum())
+            tile, blocks, resident = launch_grid(p, m, v, g_s)
             ms = cuda_ms(lambda: fused_row_adam(p, m, v, r_s, g_s, count, ROW_ADAM_LR), 20)
             prep_ms = cuda_ms(lambda: prepare_sorted_rows(rows, g, n), 20)
             plain_ms = cuda_ms(lambda: row_adam_reference(p, m, v, r_s, g_s, count,
@@ -441,9 +446,12 @@ def row_adam_phase(gen, device) -> dict:
             lib_err = (lib_p.detach().float() - want.float()).abs().max().item()
             library_ms = cuda_ms(library, 10)
             results[name, str(dtype)[6:]].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                                 bound_ms=bms, bound_by=by)
+                                                 bound_ms=bms, bound_by=by, tile_rows=tile,
+                                                 blocks=blocks)
             say("kernel", f"fused_row_adam {name} ({n}, {d}) {str(dtype)[6:]}, 2048 rows "
-                f"({distinct} distinct): kernel {ms:.4f} ms (+ prepare_sorted_rows {prep_ms:.4f} "
+                f"({distinct} distinct), {tile} rows a block, {blocks} blocks ({resident} an SM at "
+                f"once): kernel {ms:.4f} ms ({100 * bms / ms:.1f}% of its bound; + "
+                f"prepare_sorted_rows {prep_ms:.4f} "
                 f"ms), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (zeros + "
                 f"index_add_ + Adam(fused=True).step) {library_ms:.4f} ms, max abs diff from the "
                 f"kernel {lib_err:.3e}")
@@ -527,12 +535,14 @@ def ptxas_entries(name: str, fragment: str):
 def lse_phase(gen, device) -> dict:
     """The streaming logsumexp kernels against the plain version and its
     autograd at every shape of LSE_SHAPES, then their times at SGL's two
-    main shapes. Returns {"max_abs_err": {kernel: err}, side: {kernel:
-    {ms, plain_ms, library_ms, bound_ms, bound_by}}}."""
-    from chaorec_tpu_torch.ops.streaming_lse import (streaming_logsumexp,
+    main shapes and NCL's prototypes (LSE_TIMED). Returns {"max_abs_err":
+    {kernel: err}, side: {kernel: {kernel (the CUDA kernel that ran), ms,
+    plain_ms, library_ms, bound_ms, bound_by}}}."""
+    from chaorec_tpu_torch.ops.streaming_lse import (FWD_BLOCKS_PER_SM, forward_layout,
+                                                     fwd64_blocks_per_sm, streaming_logsumexp,
                                                      streaming_logsumexp_reference,
                                                      streaming_lse_dk, streaming_lse_dq,
-                                                     streaming_lse_fwd)
+                                                     streaming_lse_fwd, takes_e64)
 
     errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
     for shape in LSE_SHAPES:
@@ -563,15 +573,19 @@ def lse_phase(gen, device) -> dict:
         check(fwd_share <= 1.0 and max(rels) <= rel_tol, f"streaming_logsumexp {shape} disagrees")
         del q, k, g, got, grads, want, wgrads
 
-    ptxas = ptxas_entries("streaming_lse", "lse_bwd64_kernel")
-    for entry, regs, spill in ptxas:
-        kind = "dk" if "ILb1E" in entry else "dq"
-        say("kernel", f"ptxas (csrc/streaming_lse.cu) lse_bwd64_kernel, {kind}: {regs}; {spill}")
-    if not ptxas:
-        say("kernel", "ptxas: no log for lse_bwd64_kernel (built before this run)")
+    for frag, what in (("lse_fwd64_kernel", "forward"), ("lse_bwd64_kernel", "")):
+        ptxas = ptxas_entries("streaming_lse", frag)
+        for entry, regs, spill in ptxas:
+            kind = what or ("dk" if "ILb1E" in entry else "dq")
+            say("kernel", f"ptxas (csrc/streaming_lse.cu) {frag}, {kind}: {regs}; {spill}")
+        if not ptxas:
+            say("kernel", f"ptxas: no log for {frag} (built before this run)")
+    say("kernel", f"lse_fwd64_kernel: {fwd64_blocks_per_sm()} blocks an SM (the occupancy "
+        f"calculator; forward_splits assumes {FWD_BLOCKS_PER_SM})")
     results = {"max_abs_err": errs}
-    for side, shape in LSE_MAIN.items():
-        b, n, e, _, _ = shape
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for side, shape in LSE_TIMED.items():
+        b, n, e, _, k_grad = shape
         q, k, g = lse_inputs(gen, shape, device)
         q, k = q.detach(), k.detach()
         lse = streaming_lse_fwd(q, k)
@@ -580,24 +594,32 @@ def lse_phase(gen, device) -> dict:
         # the library route: no single PyTorch call computes this; the
         # product and torch.logsumexp, two calls, and autograd through them
         lib = torch.logsumexp(torch.mm(kq, kk.T), dim=-1)
+        e64 = takes_e64(q, k)
+        fwd_kernel, splits, per = forward_layout(q, k, sms)
         row = {}
-        for kernel, fn, plain_fn, lib_fn in (
-                ("fwd", lambda: streaming_lse_fwd(q, k),
+        for kernel, name, fn, plain_fn, lib_fn in (
+                ("fwd", fwd_kernel, lambda: streaming_lse_fwd(q, k),
                  lambda: streaming_logsumexp_reference(q, k),
                  lambda: torch.logsumexp(torch.mm(q, k.T), dim=-1)),
-                ("dq", lambda: streaming_lse_dq(q, k, lse, g),
+                ("dq", "lse_bwd64_kernel<false>" if e64 else "lse_dq_kernel",
+                 lambda: streaming_lse_dq(q, k, lse, g),
                  lambda: torch.autograd.grad(plain, (kq,), g, retain_graph=True),
                  lambda: torch.autograd.grad(lib, (kq,), g, retain_graph=True)),
-                ("dk", lambda: streaming_lse_dk(q, k, lse, g),
+                ("dk", "lse_bwd64_kernel<true>" if e64 else "lse_dk_kernel",
+                 lambda: streaming_lse_dk(q, k, lse, g),
                  lambda: torch.autograd.grad(plain, (kk,), g, retain_graph=True),
                  lambda: torch.autograd.grad(lib, (kk,), g, retain_graph=True))):
+            if kernel == "dk" and not k_grad:
+                continue  # not on the path: NCL's prototypes need no gradient
             bms, by = lse_bound(b, n, e, kernel)
-            row[kernel] = dict(ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain_fn, 10),
+            row[kernel] = dict(kernel=name, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain_fn, 10),
                                library_ms=cuda_ms(lib_fn, 10), bound_ms=bms, bound_by=by)
-            say("kernel", f"streaming_lse_{kernel} {side} side ({b}, {n}, {e}): kernel "
+            grid = f", {splits} splits x {per} tiles" if kernel == "fwd" else ""
+            say("kernel", f"streaming_lse_{kernel} {side} ({b}, {n}, {e}) by {name}{grid}: kernel "
                 f"{row[kernel]['ms']:.4f} ms, plain {row[kernel]['plain_ms']:.4f} ms, library "
                 f"(torch.logsumexp(q @ k.T){'' if kernel == 'fwd' else ' and its autograd'}, two "
-                f"calls) {row[kernel]['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+                f"calls) {row[kernel]['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{100 * bms / row[kernel]['ms']:.1f}% of it")
         results[side] = row
         del q, k, g, lse, kq, kk, plain, lib
         torch.cuda.empty_cache()
@@ -2025,18 +2047,23 @@ def main(argv=None) -> int:
                 "note": f"launches: {run} count over both tables (one launch per table per "
                         "step); library: zeros + index_add_ + Adam(fused=True).step"})
     nl = ssl_launches["NCL"]
-    for side, (b, n, e, temp, _) in LSE_MAIN.items():
+    for side, (b, n, e, temp, _) in LSE_TIMED.items():
+        model = "ncl" if side == "prototypes" else "sgl"
         for i, (kernel, line) in enumerate((("fwd", 44), ("dq", 95), ("dk", 116))):
+            if kernel not in lse[side]:
+                continue
             entries.append({
-                "name": f"streaming_lse_{kernel}@sgl[{side}]", "route": "cuda",
+                "name": f"streaming_lse_{kernel}@{model}[{side}]", "route": "cuda",
                 "source": "chaorec_tpu_torch/csrc/streaming_lse.cu",
                 "replaces": f"chaorec_tpu/ops/pallas_lse.py:{line}", "shape": [b, n, e],
-                "temperature": temp, "launches": ssl_launches["SGL"][i],
+                "temperature": temp,
+                "launches": (nl if model == "ncl" else ssl_launches["SGL"])[i],
                 "max_abs_err": lse["max_abs_err"][kernel], **lse[side][kernel],
-                "note": f"launches: the SGL CLI run's, both sides (the NCL run's: {nl[i]}); one "
-                        "launch is the kernel and its combine pass; library: no single "
-                        "PyTorch call computes this: torch.mm and torch.logsumexp"
-                        f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
+                "note": (f"launches: the {model.upper()} CLI run's, all its terms"
+                         + ("" if model == "ncl" else f" (the NCL run's: {nl[i]})")
+                         + "; one launch is the kernel and its combine pass; library: no single "
+                         "PyTorch call computes this: torch.mm and torch.logsumexp"
+                         f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together")})
     seg_names = {"dgcf": "DGCF", "dccf": "DCCF", "mgat_v": "MGAT", "mgat_t": "MGAT",
                  "mgat": "MGAT"}
     for name, (m, d) in scan_shapes(fds).items():

@@ -194,6 +194,33 @@ def test_check_args_refuses(case):
         trow.check_args(**args)
 
 
+# (N, D, bytes an element, blocks an SM holds, expected (rows a block,
+# blocks) on 132 SMs): FREEDOM's v_feat and t_feat in fp32 (78 registers: 3
+# blocks an SM) and bf16 (60: 4), a one-wide table and D 13 (the scalar
+# route, 40: 6), a short table and one row
+@pytest.mark.parametrize("n,d,size,resident,want", [
+    (15207, 4096, 4, 3, (1, 15207)), (15207, 4096, 2, 4, (2, 7604)),
+    (15207, 384, 4, 3, (10, 1521)), (15207, 384, 2, 4, (29, 525)),
+    (15207, 1, 4, 6, (20, 761)), (15207, 13, 2, 6, (20, 761)), (777, 384, 2, 4, (2, 389)),
+    (1, 8192, 4, 3, (1, 1))])
+def test_tile_rows_cover_every_row(n, d, size, resident, want):
+    """tile_rows covers every row once in whole rows, stays within the
+    shared row map and gives the layout the kernel was timed at; a grid of
+    fewer than FEW_WAVES waves ends in a wave at least half full."""
+    rows = trow.tile_rows(n, d, size, 132, resident)
+    blocks = -(-n // rows)
+    assert (rows, blocks) == want
+    assert 1 <= rows <= trow.MAX_TILE_ROWS
+    assert blocks * rows >= n and (blocks - 1) * rows < n
+    slots = 132 * resident
+    if n >= slots and blocks < trow.FEW_WAVES * slots:
+        assert blocks % slots == 0 or blocks % slots >= slots / 2
+    covered = np.zeros(n, np.int64)
+    for blk in range(blocks):
+        covered[blk * rows:min((blk + 1) * rows, n)] += 1
+    assert (covered == 1).all()
+
+
 def _on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: csrc/row_adam.cu has no CPU mode")
@@ -234,3 +261,35 @@ def test_cuda_kernel_matches_plain(dtype, shape):
             bound = tol["atol"] + tol["rtol"] * want.float().abs() + ulps * bf16_ulp(got, want)
             assert ((got.float() - want.float()).abs() <= bound).all()
             got.copy_(want)  # the next step starts from equal tables and moments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [384, 13])
+def test_cuda_kernel_at_full_height(dtype, d):
+    """fused_row_adam against row_adam_reference on a 15207-row table:
+    t_feat's width (16-byte vectors) and D 13 (the
+    scalar route), 2048 raw rows with duplicates, rows 0 and N-1 and
+    sentinel padding, one step from equal tables, to the module's
+    tolerances (bf16: one bf16 ulp on top)."""
+    _on_card()
+    rs = np.random.default_rng(d)
+    n = 15207
+    p = torch.from_numpy(rs.standard_normal((n, d)).astype(np.float32)).cuda().to(dtype)
+    m = (torch.from_numpy(rs.random((n, d)).astype(np.float32)).cuda() * 1e-3).to(dtype)
+    v = (torch.from_numpy(rs.random((n, d)).astype(np.float32)).cuda() * 1e-6).to(dtype)
+    raw = np.concatenate([[0, n - 1, n - 1], rs.integers(0, n, 2045)]).astype(np.int32)
+    g = torch.from_numpy(rs.standard_normal((2048, d)).astype(np.float32)).cuda()
+    rows, g_agg = trow.prepare_sorted_rows(torch.from_numpy(raw).cuda(), g, n)
+    assert (rows == n).any()  # sentinel padding
+    count = torch.tensor(3, dtype=torch.int32, device="cuda")
+    want = [t.clone() for t in (p, m, v)]
+    trow.row_adam_reference(*want, rows, g_agg, count, 1e-3)
+    before = trow.fused_row_adam.launches
+    trow.fused_row_adam(p, m, v, rows, g_agg, count, 1e-3)
+    torch.cuda.synchronize()
+    assert trow.fused_row_adam.launches == before + 1
+    ulps = 1.0 if dtype == torch.bfloat16 else 0.0
+    for got, w, tol in ((p, want[0], P_TOL), (m, want[1], P_TOL), (v, want[2], V_TOL)):
+        bound = tol["atol"] + tol["rtol"] * w.float().abs() + ulps * bf16_ulp(got, w)
+        assert ((got.float() - w.float()).abs() <= bound).all()

@@ -121,10 +121,114 @@ def test_backward_path_follows_width_and_alignment():
     """lse_bwd64_kernel takes E 64 with q and k 16-byte aligned; any other
     width or an unaligned view goes to the generic kernels."""
     q, k = torch.zeros(8, 64), torch.zeros(20, 64)
-    assert tlse.takes_bwd64(q, k)
-    assert not tlse.takes_bwd64(torch.zeros(8, 32), torch.zeros(20, 32))
-    assert not tlse.takes_bwd64(torch.zeros(8 * 64 + 1)[1:].view(8, 64), k)
-    assert not tlse.takes_bwd64(q, torch.zeros(20 * 64 + 2)[2:].view(20, 64))
+    assert tlse.takes_e64(q, k)
+    assert not tlse.takes_e64(torch.zeros(8, 32), torch.zeros(20, 32))
+    assert not tlse.takes_e64(torch.zeros(8 * 64 + 1)[1:].view(8, 64), k)
+    assert not tlse.takes_e64(q, torch.zeros(20 * 64 + 2)[2:].view(20, 64))
+
+
+# (B, N, SMs, expected (splits, tiles per split)) of lse_fwd64_kernel: SGL's
+# user and item sides, the ragged last batch, NCL's 200 prototypes (the
+# layouts timed on the card), a small case, and edge cases (one row
+# and column, one q row against a long catalog, a long q against one
+# column, B past one wave, one SM)
+@pytest.mark.parametrize("b,n,sms,want", [
+    (1024, 28940, 132, (33, 14)), (1024, 15207, 132, (30, 8)), (381, 15207, 132, (80, 3)),
+    (1024, 200, 132, (4, 1)), (7, 513, 132, (9, 1)), (1, 1, 132, (1, 1)),
+    (1, 100000, 132, (261, 6)), (100000, 1, 132, (1, 1)), (200000, 64, 132, (1, 1)),
+    (128, 64, 1, (1, 1))])
+def test_forward_splits_cover_the_catalog(b, n, sms, want):
+    """forward_splits covers every k tile exactly once, leaves no split
+    empty, and puts at most FWD_BLOCKS_PER_SM blocks on an SM unless B
+    alone needs more (one split)."""
+    splits, per = tlse.forward_splits(b, n, sms)
+    tiles = -(-n // tlse.TILE)
+    assert (splits, per) == want
+    covered = [t for s in range(splits) for t in range(s * per, min((s + 1) * per, tiles))]
+    assert covered == list(range(tiles))
+    assert 1 <= splits <= 65535
+    blocks = -(-b // tlse.ENGINE_ROWS) * splits
+    assert blocks <= tlse.FWD_BLOCKS_PER_SM * sms or splits == 1
+
+
+@pytest.mark.parametrize("q,k,kernel", [
+    ((8, 64), (20, 64), "lse_fwd64_kernel"), ((8, 32), (20, 32), "lse_fwd_kernel"),
+    ((8, 256), (20, 256), "lse_fwd_kernel"), ("q+1", (20, 64), "lse_fwd_kernel"),
+    ((8, 64), "k+2", "lse_fwd_kernel")])
+def test_forward_path_follows_width_and_alignment(q, k, kernel):
+    """The forward runs lse_fwd64_kernel, laid out by forward_splits, only
+    at E 64 with q and k 16-byte aligned; else lse_fwd_kernel, laid out by
+    catalog_splits. "q+1" and "k+2" are views 4 and 8 bytes off a 16-byte
+    boundary."""
+    views = {"q+1": torch.zeros(8 * 64 + 1)[1:].view(8, 64),
+             "k+2": torch.zeros(20 * 64 + 2)[2:].view(20, 64)}
+    q = views[q] if isinstance(q, str) else torch.zeros(q)
+    k = views[k] if isinstance(k, str) else torch.zeros(k)
+    splits = tlse.forward_splits if kernel == "lse_fwd64_kernel" else tlse.catalog_splits
+    assert tlse.forward_layout(q, k, 132) == (kernel, *splits(8, 20, 132))
+
+
+LOG2E = np.float32(1.4426950408889634)
+NEG = np.float32(-1e30)
+
+
+def _merge(m, s, mo, so):
+    """csrc/streaming_lse.cu:merge in fp32: the pair of (m, s) and (mo, so)."""
+    mn = np.maximum(m, mo)
+    return mn, s * np.exp(m - mn) + so * np.exp(mo - mn)
+
+
+def fwd64_order(logits: np.ndarray, splits: int, per: int) -> np.ndarray:
+    """lse_fwd64_kernel's order of fp32 operations, in numpy, from fp32
+    logits (B, N): per split, each of the 8 threads of a row (columns
+    cg + 8 j of each 64-column tile) keeps a running (max, sum) with one
+    rescale exp2 a tile and one exp2 a logit of fmaf(logit, log2 e,
+    -max log2 e); the 8 pairs merge by shuffles xor 1, 2, 4; then the
+    splits merge in order (lse_combine_kernel). exp2 and fmaf are numpy's
+    correctly rounded ones, not the card's ex2.approx."""
+    b, n = logits.shape
+    tiles = -(-n // 64)
+    padded = np.full((b, tiles * 64), -np.inf, np.float32)
+    padded[:, :n] = logits
+    cols = padded.reshape(b, tiles, 8, 8)  # (row, tile, j, cg): column 64 t + cg + 8 j
+    big_m, big_s = np.full(b, NEG, np.float32), np.zeros(b, np.float32)
+    for split in range(splits):
+        m, l = np.full((b, 8), NEG, np.float32), np.zeros((b, 8), np.float32)
+        for t in range(split * per, min((split + 1) * per, tiles)):
+            s = cols[:, t]  # (row, j, cg)
+            mn = np.maximum(m, s.max(axis=1))
+            neg = -mn * LOG2E
+            acc = l * np.exp2((m - mn) * LOG2E)
+            for j in range(8):
+                arg = (s[:, j].astype(np.float64) * LOG2E + neg).astype(np.float32)
+                acc = acc + np.exp2(arg)
+            m, l = mn, acc
+        for off in (1, 2, 4):
+            partner = np.arange(8) ^ off
+            m, l = _merge(m, l, m[:, partner], l[:, partner])
+        big_m, big_s = _merge(big_m, big_s, m[:, 0], l[:, 0])
+    return big_m + np.log(big_s)
+
+
+@pytest.mark.parametrize("temperature", [0.1, 0.01])
+@pytest.mark.parametrize("b,n", [(1024, 28940), (1024, 15207), (381, 15207), (1024, 200),
+                                 (7, 513), (1, 1)])
+def test_forward_order_within_the_gate(b, n, temperature):
+    """lse_fwd64_kernel's summation order (fwd64_order) over the grid
+    forward_splits gives at the path's shapes, on 16 of the rows (the
+    order of a row does not depend on the others), stays within the
+    kernel gate (rtol/atol 1e-5) of a float64 logsumexp of the same fp32
+    logits, with logits to +-100 at temperature 0.01."""
+    rows = min(b, 16)
+    q, k, _ = _inputs(rows, n, 64, "unit/0.01", seed=n)
+    logits = (q * np.float32(0.01 / temperature)) @ k.T
+    splits, per = tlse.forward_splits(b, n, 132)
+    got = fwd64_order(logits, splits, per)
+    x = logits.astype(np.float64)
+    top = x.max(axis=1, keepdims=True)
+    want = (top + np.log(np.exp(x - top).sum(axis=1, keepdims=True)))[:, 0]
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **VAL_TOL)
 
 
 @pytest.mark.parametrize("case", ["rank", "width", "empty", "devices", "wide", "dtype",
@@ -262,7 +366,7 @@ def test_cuda_backward_of_an_unaligned_q():
     """A q view 4 bytes off a 16-byte boundary takes the generic kernels."""
     _on_card()
     q, k, _ = _card_inputs(7, 513, 64, 0.1, offset=1)
-    assert not tlse.takes_bwd64(q, k)
+    assert not tlse.takes_e64(q, k)
     _hold_backward(70, 513, 64, 0.1, offset=1)
 
 
@@ -309,3 +413,91 @@ def test_cuda_backward_back_to_back_shapes():
         for inputs, want in zip((small, large), alone):
             for a, w in zip(_backward_pair(*inputs), want):
                 assert torch.equal(a, w)
+
+
+def _hold_forward(b, n, e, temp, offset=0):
+    """streaming_lse_fwd against the plain version at rtol/atol 1e-5, one
+    launch, on the kernel forward_layout names."""
+    q, k, _ = (t.detach() for t in _card_inputs(b, n, e, temp, seed=b + n + e, offset=offset))
+    before = tlse.streaming_lse_fwd.launches
+    got = tlse.streaming_lse_fwd(q, k)
+    torch.cuda.synchronize()
+    assert tlse.streaming_lse_fwd.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b,)
+    torch.testing.assert_close(got, tlse.streaming_logsumexp_reference(q, k), rtol=1e-5,
+                               atol=1e-5)
+    return q, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [1, 3, 64, 100, 256])
+def test_cuda_forward_at_every_width(e):
+    """The generic forward (E 1, 3, 100, 256) and lse_fwd64_kernel (E 64)."""
+    _on_card()
+    q, k = _hold_forward(300, 2000, e, 0.1)
+    assert tlse.forward_layout(q, k, 132)[0] == ("lse_fwd64_kernel" if e == 64
+                                                 else "lse_fwd_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 381, 1024])
+@pytest.mark.parametrize("n", [1, 200, 513, 28940])
+def test_cuda_forward_at_ragged_shapes(b, n):
+    """lse_fwd64_kernel at every B against every N: one row, one column
+    (7 of a thread's 8 columns and 63 of the tile masked), partial tiles on
+    both sides, SGL's user side."""
+    _on_card()
+    _hold_forward(b, n, 64, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1024, 200), (381, 15207), (1024, 28940)])
+def test_cuda_forward_with_logits_to_100(b, n):
+    """Unit rows over a temperature of 0.01: logits reach +-100, and each
+    split's online rescale spans many decades."""
+    _on_card()
+    _hold_forward(b, n, 64, 0.01)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_of_an_unaligned_q():
+    """A q view 4 bytes off a 16-byte boundary takes lse_fwd_kernel."""
+    _on_card()
+    q, k = _hold_forward(70, 513, 64, 0.1, offset=1)
+    assert not tlse.takes_e64(q, k)
+    assert tlse.forward_layout(q, k, 132)[0] == "lse_fwd_kernel"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,temp", [(1024, 28940, 0.1), (1024, 15207, 0.1),
+                                      (381, 15207, 0.1), (1024, 200, 0.01)])
+def test_cuda_forward_bits_in_calls_and_graph_replays(b, n, temp):
+    """The same bits from two calls and from two replays of one CUDA graph
+    (which also equal the calls'): no atomics, and the splits' combine
+    pass merges in a fixed order."""
+    _on_card()
+    q, k, _ = (t.detach() for t in _card_inputs(b, n, 64, temp))
+    first, second = tlse.streaming_lse_fwd(q, k), tlse.streaming_lse_fwd(q, k)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tlse.streaming_lse_fwd(q, k)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tlse.streaming_lse_fwd(q, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay1 = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replay1)
+    assert torch.equal(first, out)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_blocks_an_sm():
+    """One SM holds FWD_BLOCKS_PER_SM blocks of lse_fwd64_kernel (68 KB of
+    shared memory each, and its registers), as forward_splits assumes."""
+    _on_card()
+    assert tlse.fwd64_blocks_per_sm() == tlse.FWD_BLOCKS_PER_SM
