@@ -6,7 +6,7 @@ constructor arguments of its JAX counterpart.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -14,13 +14,21 @@ from chaorec_tpu_torch.config import Config
 from chaorec_tpu_torch.data.loading import RecDataset, dense_interactions
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph, build_norm_adj
 from chaorec_tpu_torch.models import register_model
+from chaorec_tpu_torch.models.bpr import BPRMF
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
 from chaorec_tpu_torch.models.dccf import DCCF
 from chaorec_tpu_torch.models.dgcf import DGCF
 from chaorec_tpu_torch.models.freedom import FREEDOM
+from chaorec_tpu_torch.models.layergcn import LayerGCN
+from chaorec_tpu_torch.models.lightgcn import LightGCN
 from chaorec_tpu_torch.models.mgat import MGAT
 from chaorec_tpu_torch.models.ncl import NCL
+from chaorec_tpu_torch.models.ngcf import NGCF
 from chaorec_tpu_torch.models.sgl import SGL
+from chaorec_tpu_torch.models.simgcl import SimGCL
+from chaorec_tpu_torch.models.xsimgcl import XSimGCL
+from chaorec_tpu_torch.ops.linear_prop import (CombinedLinearOp, build_weighted_op,
+                                               fits_linear_op, lightgcn_weights)
 
 
 def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device) -> BipartiteGraph:
@@ -29,6 +37,17 @@ def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device) -> BipartiteGra
     return build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device,
                           dense_threshold=cfg.dense_prop_threshold,
                           compute_dtype=cfg.graph_compute_dtype)
+
+
+def _maybe_op(cfg: Config, ds: RecDataset, graph: BipartiteGraph,
+              layer_weights: Sequence[float]) -> Optional[CombinedLinearOp]:
+    """The combined linear operator, on R's device, when ``use_linear_op``
+    (default on), the graph is dense and M's entries fit."""
+    if cfg.get("use_linear_op", True) and graph.use_dense and fits_linear_op(
+            ds.num_user, ds.num_item):
+        return build_weighted_op(graph.dense_r, layer_weights,
+                                 store_bf16=cfg.graph_compute_dtype == "bfloat16")
+    return None
 
 
 def _feats(ds: RecDataset, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -102,3 +121,55 @@ def _mgat(cfg: Config, ds: RecDataset, device: torch.device) -> MGAT:
     v, t = _feats(ds, device)
     return MGAT(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
                 cfg.reg_weight)
+
+
+@register_model("BPR")
+def _bpr(cfg: Config, ds: RecDataset, device: torch.device) -> BPRMF:
+    # main.py:264: BPRMF(num_user, num_item, user_item_dict, dim_E, reg_weight, device)
+    return BPRMF(ds.num_user, ds.num_item, cfg.dim_E, cfg.reg_weight, device)
+
+
+@register_model("LightGCN")
+def _lightgcn(cfg: Config, ds: RecDataset, device: torch.device) -> LightGCN:
+    # main.py:269-270: LightGCN(..., dim_E, reg_weight, n_layers, aggr_mode, device)
+    graph = _ui_graph(cfg, ds, device)
+    op = _maybe_op(cfg, ds, graph, lightgcn_weights(cfg.n_layers))
+    return LightGCN(ds.num_user, ds.num_item, graph, cfg.dim_E, cfg.reg_weight, cfg.n_layers,
+                    linear_op=op)
+
+
+@register_model("NGCF")
+def _ngcf(cfg: Config, ds: RecDataset, device: torch.device) -> NGCF:
+    # main.py:267-268: NGCF(..., dim_E, reg_weight, dropout, n_layers, aggr_mode, device)
+    return NGCF(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                cfg.reg_weight, cfg.dropout, cfg.n_layers)
+
+
+@register_model("SimGCL")
+def _simgcl(cfg: Config, ds: RecDataset, device: torch.device) -> SimGCL:
+    # main.py:335-336: SimGCL(..., dim_E, reg_weight, n_layers, ssl_temp, ssl_alpha, device)
+    graph = _ui_graph(cfg, ds, device)
+    n = cfg.n_layers
+    op = _maybe_op(cfg, ds, graph, [0.0] + [1.0 / n] * n)
+    return SimGCL(ds.num_user, ds.num_item, graph, cfg.dim_E, cfg.reg_weight, n,
+                  cfg.ssl_temp, cfg.ssl_alpha, linear_op=op)
+
+
+@register_model("XSimGCL")
+def _xsimgcl(cfg: Config, ds: RecDataset, device: torch.device) -> XSimGCL:
+    # main.py:337-338: XSimGCL(..., dim_E, reg_weight, n_layers, ssl_temp, ssl_alpha, device)
+    graph = _ui_graph(cfg, ds, device)
+    n = cfg.n_layers
+    op = _maybe_op(cfg, ds, graph, [0.0] + [1.0 / n] * n)
+    return XSimGCL(ds.num_user, ds.num_item, graph, cfg.dim_E, cfg.reg_weight, n,
+                   cfg.ssl_temp, cfg.ssl_alpha, linear_op=op)
+
+
+@register_model("LayerGCN")
+def _layergcn(cfg: Config, ds: RecDataset, device: torch.device) -> LayerGCN:
+    # main.py:323-324: LayerGCN(..., dim_E, reg_weight, n_layers, dropout, device); the
+    # graph is dense whatever its size, as the JAX package's ``_layergcn`` makes it
+    graph = build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device, use_dense=True,
+                           compute_dtype=cfg.graph_compute_dtype)
+    return LayerGCN(ds.num_user, ds.num_item, graph, cfg.dim_E, cfg.reg_weight,
+                    cfg.n_layers, cfg.dropout)

@@ -11,8 +11,8 @@ purpose:
   reference's per-batch mean.
 
 ``catalog_logsumexp`` goes through the streaming logsumexp kernels
-(``ops/streaming_lse.py``) on the card. ``info_nce`` comes with SimGCL and
-XSimGCL, its only users.
+(``ops/streaming_lse.py``) on the card. ``info_nce`` is in-batch (B x B
+logits), a plain ``logsumexp`` in both packages.
 """
 
 from __future__ import annotations
@@ -62,6 +62,18 @@ def emb_l2_reg(reg_weight: float, embeddings: Sequence[torch.Tensor],
         sq = torch.mean(e ** 2, dim=-1) if e.dim() > 1 else e ** 2
         total = total + masked_mean(sq, weights)
     return reg_weight * total
+
+
+def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """InfoNCE with in-batch negatives over L2-normalized views
+    (Model/SimGCL.py:16-31): the positive of a row is the same row of the
+    other view, its negatives every row of view2; a weighted mean over the
+    rows."""
+    v1, v2 = l2norm(view1), l2norm(view2)
+    pos = torch.sum(v1 * v2, dim=1) / temperature
+    log_denom = torch.logsumexp((v1 @ v2.t()) / temperature, dim=1)
+    return -masked_mean(pos - log_denom, weights)
 
 
 def catalog_logsumexp(q: torch.Tensor, k: torch.Tensor,

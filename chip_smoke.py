@@ -29,7 +29,14 @@ published width with random weights from ``--seed``:
   Model_YAML file, on the same sports-sized set: the CLI's grid run with
   BPR batches of 1024 edges, whose segment sums (and the backward of their
   gathers) go through the prefix-sum kernel, then (DGCF) the export of its
-  best epoch, routing scores included, and the serving of its embeddings.
+  best epoch, routing scores included, and the serving of its embeddings;
+- the linear-GCN family on a dataset of beauty's size (15482 users x 8643
+  items): LightGCN (dim 64, 2 layers, lr 1e-3, reg 1e-3, batch 1024, as
+  bench.py's LightGCN leg) trained on the combined linear operator
+  (ops/linear_prop.py, built on the card in bf16) through the CLI's run,
+  then the export and serving of its embeddings; BPR, SimGCL, XSimGCL (on
+  the operator too), NGCF and LayerGCN at their Model_YAML file's first
+  combo. No TPU kernel lies on this path.
 
 Phases, each printing its own lines:
 
@@ -131,10 +138,29 @@ Phases, each printing its own lines:
             on a float32 R kernel vs plain, the step profile
 27-29.      MGAT: cli.run 1 epoch (18 launches a step, 6 an eval), one step
             kernel vs plain, the step profile and its peak memory
-30. determinism  each of the seven models twice from a fresh Trainer on
+30. lightgcn LightGCN cli.run on the beauty-sized set: 2 epochs with
+            --export_artifact (no kernel launch expected); the operator's
+            build (seconds, bytes, peak memory; it must be bf16 on the card
+            and the one the model trains on); per epoch the loss, training
+            and eval walls, eval users per second and peak memory; the
+            exported embeddings served over HTTP
+31. linear  BPR, SimGCL, XSimGCL, NGCF and LayerGCN cli.run, 1 epoch each
+            at their first combo on the same set: loss, walls, peak memory
+            and (SimGCL, XSimGCL) the operator's build
+32. lstep   one step of each of the six on the card against the same step
+            on the CPU, on a seeded 2048 x 1024 set at dim 64 on a float32
+            R, with equal params, batch, negatives and noise, keep mask or
+            pruned R: the loss and every gradient; then LightGCN's step on
+            its default bf16 operator, card against CPU
+33. profile device time by kernel and idle share over one step of each of
+            the six at the beauty-sized set (bf16 operator and R), split
+            into the index kernels, the GEMMs and the copy kernels (bdot's
+            fp32 casts); peak memory
+34. determinism  each of the thirteen models twice from a fresh Trainer on
             one seed at the path's shapes (CF_Diff one epoch, the others
             20 steps), then an evaluation: equal loss bits and equal rank
-            lists, one JSON line per model with both runs' seconds
+            lists, one JSON line per model with both runs' seconds; the
+            seconds phases 30-33 and the family's six models here added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -144,8 +170,8 @@ without the result line.
 
     python3 chip_smoke.py [--seed 0] [--data_root DIR] [--out_dir log]
 
-With ``--data_root`` pointing at a directory holding ``baby/train.npy`` and
-``sports/train.npy`` etc., the real datasets are used instead of the
+With ``--data_root`` pointing at a directory holding ``baby/train.npy``,
+``sports/train.npy``, ``beauty/train.npy`` etc., the real datasets are used instead of the
 synthetic ones. TF32 is off for matmuls and convolutions throughout: the
 plain versions the kernels are held to sum in full fp32, as the kernels do.
 """
@@ -254,9 +280,27 @@ ATTN_SHAPES = ((64, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 1034, 1034, 4
 BWD_SHAPES = ((16, 4, 1034, 1034, 4), (2, 3, 300, 130, 4), (1, 4, 257, 1033, 4),
               (2, 4, 300, 4100, 4))
 TRAIN_EPOCHS, TRAIN_BATCH = 2, 1024
-# Phase 30: every model twice on one seed, at the path's shapes, for equal
+# Phases 30-33: the linear-GCN family on a beauty-sized set. LightGCN at
+# bench.py:248-251's config (the n_layers 2 combo of Model_YAML/LightGCN.yaml,
+# dim 64, batch 1024), the others at their Model_YAML file's first combo.
+LINEAR_DATASET = "beauty"
+LIGHTGCN_CONFIG = dict(Model="LightGCN", n_layers=2, learning_rate=1e-3, reg_weight=1e-3,
+                       batch_size=1024, dim_E=64)
+LIGHTGCN_EPOCHS = 2
+LINEAR_MODELS = ("BPR", "SimGCL", "XSimGCL", "NGCF", "LayerGCN")
+OP_MODELS = ("LightGCN", "SimGCL", "XSimGCL")  # the builders make their operator
+STEP_SHAPE = (2048, 1024)  # phase 32's seeded set, users x items
+# Phase 32's bf16-operator step. The forward's products are of bf16 values,
+# exact in float32, so card and CPU differ only in the order of the float32
+# sums: the loss keeps STEP_LOSS_RTOL. Each table's gradient is the sum of
+# two bdot gradients, each rounded to bf16 after float32 sums taken in
+# another order, so either may land one bf16 ulp (2^-8 relative) away:
+# 2^-6 of the tensor's largest entry, far below what a wrong row would move.
+BF16_STEP_RTOL = 2.0 ** -6
+# Phase 34: every model twice on one seed, at the path's shapes, for equal
 # bits (CF_Diff one epoch, the others this many steps, then an evaluation)
-DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT")
+DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
+              "SimGCL", "XSimGCL", "NGCF", "LayerGCN")
 DET_STEPS = 20
 
 
@@ -679,16 +723,18 @@ def plain_attention():
         cf_diff.fused_mha = kernel
 
 
-def synthetic_dataset(name: str, seed: int, lens=(5, 14), features: bool = False):
-    """``name``'s shape with ``lens`` (low, high) train items per user, drawn
-    with a popularity skew (item weight ~ 1 / (rank + 10)), one val and one
-    test item each; with ``features``, the loader's synthetic image and text
-    features (``data/loading.synthetic_item_features``)."""
+def synthetic_dataset(name: str, seed: int, lens=(5, 14), features: bool = False,
+                      shape=None):
+    """``name``'s shape (or ``shape``, (users, items)) with ``lens`` (low,
+    high) train items per user, drawn with a popularity skew (item weight ~
+    1 / (rank + 10)), one val and one test item each; with ``features``,
+    the loader's synthetic image and text features
+    (``data/loading.synthetic_item_features``)."""
     from chaorec_tpu_torch.data.loading import (DATASET_STATS, T_FEAT_DIM, T_FEAT_SEED,
                                                 V_FEAT_DIM, V_FEAT_SEED, RecDataset,
                                                 _pad_lists, synthetic_item_features)
 
-    num_user, num_item = DATASET_STATS[name]
+    num_user, num_item = shape or DATASET_STATS[name]
     rng = np.random.default_rng(seed)
     w = 1.0 / (np.arange(num_item) + 10.0)
     w = w[rng.permutation(num_item)]
@@ -1578,17 +1624,270 @@ def seg_phases(args, device, fds) -> dict:
     return launches
 
 
+class BuildProbe:
+    """While active, records each model ``cli.run`` builds, and times each
+    combined linear operator the builders make (the device synchronized at
+    both ends) with the build's peak device memory above what was allocated
+    before it."""
+
+    def __init__(self):
+        self.models, self.ops = [], []
+
+    def __enter__(self):
+        from chaorec_tpu_torch import cli
+        from chaorec_tpu_torch.models import builders
+
+        self.cli, self.builders = cli, builders
+        build_model = self.build_model = cli.build_model
+        build_op = self.build_op = builders.build_weighted_op
+
+        def recorded(cfg, dataset, device):
+            model = build_model(cfg, dataset, device)
+            self.models.append(model)
+            return model
+
+        def timed(dense_r, layer_weights, store_bf16=True):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            op = build_op(dense_r, layer_weights, store_bf16)
+            torch.cuda.synchronize()
+            self.ops.append(dict(op=op, seconds=time.perf_counter() - t0,
+                                 layers=len(layer_weights) - 1,
+                                 peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30))
+            return op
+
+        cli.build_model, builders.build_weighted_op = recorded, timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.build_model, self.builders.build_weighted_op = self.build_model, self.build_op
+
+
+def describe_op(built) -> str:
+    op = built["op"]
+    return (f"combined operator of {built['layers']} layers on {op.m_uu.device}, "
+            f"{str(op.m_uu.dtype).replace('torch.', '')} blocks, {op.nbytes / 1e9:.3f} GB, "
+            f"built in {built['seconds']:.3f} s, build peak {built['peak_gib']:.2f} GiB above "
+            "what was allocated before it")
+
+
+def linear_dataset(args):
+    """The beauty-sized set phases 30-33 share: ``--data_root``'s, or a
+    synthetic one."""
+    from chaorec_tpu_torch.data.loading import data_load
+
+    t0 = time.perf_counter()
+    ds = (data_load(LINEAR_DATASET, args.data_root) if args.data_root
+          else synthetic_dataset(LINEAR_DATASET, args.seed))
+    say("lightgcn", f"{'data_load' if args.data_root else 'synthetic'} {LINEAR_DATASET} "
+        f"({ds.num_user}, {ds.num_item}), {ds.num_edges} train edges: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return ds
+
+
+def linear_cli_run(phase, device, ds, name, cfg, grid):
+    """One ``cli.run`` of a linear-GCN family model on ``ds``, where no
+    kernel launch is expected; prints each epoch's loss, walls and peak
+    memory and each operator's build. Returns (models, operators) built."""
+    from chaorec_tpu_torch import cli
+
+    probe = EpochProbe()
+    logging.getLogger().addFilter(probe)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with BuildProbe() as built:
+            best = cli.run(cfg, grid, ds, device)
+            torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeFilter(probe)
+    run_s = time.perf_counter() - t0
+    others = other_counts()
+    for op in built.ops:
+        say(phase, f"{name}: {describe_op(op)}")
+    for e, ep in enumerate(probe.epochs):
+        say(phase, f"{name} epoch {e + 1}: loss {ep['loss']:.5f}, wall {ep['wall_s']:.3f} s "
+            f"(training {ep['train_s']:.3f} s, eval {ep['eval_s']:.3f} s: "
+            f"{ds.num_user / ep['eval_s']:.0f} users/s), peak device memory "
+            f"{ep['peak_gib']:.2f} GiB")
+    combo = {k: grid[k][0] for k in grid["hyper_parameters"]}
+    n_batches = math.ceil(ds.num_edges / cfg.batch_size)
+    say(phase, f"{name} cli.run {combo}: {cfg.num_epoch} epochs x {n_batches} batches of "
+        f"{cfg.batch_size}{' + export' if cfg.export_artifact else ''}: {run_s:.3f} s wall; "
+        f"kernel launches {others} (expected none: no TPU kernel lies on this path)")
+    check(not any(others), f"{name} launched {others}")
+    check(len(probe.epochs) == cfg.num_epoch, f"{len(probe.epochs)} epochs logged")
+    check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
+    check(sorted(best) == [5, 10, 20] and all(
+        math.isfinite(v) for m in best.values() for v in m.values()), f"best {best}")
+    say(phase, f"{name} best test metrics: " + "; ".join(
+        f"@{k} recall {m['recall']:.5f} ndcg {m['ndcg']:.5f}" for k, m in best.items()))
+    return built.models, built.ops
+
+
+def step_loss(model):
+    """(loss of (params, batch, draws), draw(generator)): each model's loss
+    with its random draws given, so that two devices can share them."""
+    if hasattr(model, "noise_draws"):  # SimGCL, XSimGCL
+        return model.loss_with_noise, model.noise_draws
+    if hasattr(model, "keep_mask"):  # NGCF
+        return model.loss_with_keep, model.keep_mask
+    return (lambda p, b, d: model.loss(p, b, None)), (lambda gen: None)
+
+
+def linear_gcn_phases(args, device, ds) -> float:
+    """Phases 30-33: LightGCN's CLI run on beauty with its export served,
+    the other five models' runs, one step of each on the card against the
+    CPU, and the six models' step profiles. Returns their wall seconds."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    t_start = time.perf_counter()
+    # 30. lightgcn: the CLI's run at bench.py's LightGCN config -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "lightgcn.npz")
+        cfg, _ = path_config("LightGCN", args)
+        cfg = cfg.replace(num_epoch=LIGHTGCN_EPOCHS, log_dir=args.out_dir, export_artifact=art)
+        grid = {k: [LIGHTGCN_CONFIG[k]] for k in ("n_layers", "learning_rate", "reg_weight")}
+        grid["hyper_parameters"] = list(grid)
+        models, ops = linear_cli_run("lightgcn", device, ds, "LightGCN", cfg, grid)
+        op = ops[0]["op"] if len(ops) == 1 else None
+        check(len(models) == 1 and op is not None and models[0].linear_op is op
+              and op.m_uu.dtype == torch.bfloat16 and op.m_uu.device.type == device.type,
+              "LightGCN did not train on one bf16 combined operator on the card")
+        check_embeddings_serving("lightgcn", art, ds, device, "LightGCN")
+        del models, ops, op
+    torch.cuda.empty_cache()
+
+    # 31. linear: the other five, 1 epoch each at their first combo ---------
+    for name in LINEAR_MODELS:
+        cfg, _ = path_config(name, args)
+        models, ops = linear_cli_run("linear", device, ds, name,
+                                     cfg.replace(num_epoch=1, log_dir=args.out_dir),
+                                     first_combo(name)[1])
+        check(len(ops) == (1 if name in OP_MODELS else 0)
+              and all(o["op"].m_uu.device.type == device.type for o in ops),
+              f"{name} built {len(ops)} operators")
+        del models, ops
+        torch.cuda.empty_cache()
+
+    # 32. lstep: one step of each on the card against the same on the CPU ---
+    # On a float32 R, at a small set that the CPU's side of the check can
+    # build and step quickly.
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE)
+    cases = [(name, "float32") for name in ("LightGCN",) + LINEAR_MODELS]
+    for name, r_dtype in cases + [("LightGCN", "bfloat16")]:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype=r_dtype)
+        cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+        if r_dtype == "bfloat16":
+            check(all(m.linear_op is not None and m.linear_op.m_uu.dtype == torch.bfloat16
+                      for m in (cpu_model, card_model)), "no bf16 operator for the step")
+        trainer = Trainer(cpu_model, sds, cfg)
+        params = trainer.init_params()
+        batch = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)[0]
+        batch = dataclasses.replace(batch, neg_items=sample_negatives(
+            trainer.generator, batch.users, trainer.history, cpu_model.num_item,
+            cfg.neg_candidates))
+        draws = step_loss(cpu_model)[1](trainer.generator)
+        out = []  # (loss, gradients) on the CPU, then on the card
+        for model in (cpu_model, card_model):
+            model.pre_epoch(params, 0)  # LayerGCN's pruning: one host draw, the same in both
+            leaves = {n: t.detach().to(model.device, copy=True).requires_grad_()
+                      for n, t in params.items()}
+            on = model.device
+            loss = step_loss(model)[0](leaves, dataclasses.replace(
+                batch, users=batch.users.to(on), weights=batch.weights.to(on),
+                pos_items=batch.pos_items.to(on), neg_items=batch.neg_items.to(on)),
+                clone_to(draws, on))
+            loss.backward()
+            out.append((loss.item(), {n: t.grad.cpu() for n, t in leaves.items()}))
+        (c_loss, c_grads), (g_loss, g_grads) = out
+        rtol = STEP_RTOL if r_dtype == "float32" else BF16_STEP_RTOL
+        scale = max(g.abs().max().item() for g in c_grads.values())
+        worst = max(((g_grads[n] - g).abs().max().item()
+                     / (rtol * g.abs().max().item() + STEP_ATOL * scale), n)
+                    for n, g in c_grads.items())
+        loss_rel = abs(g_loss - c_loss) / abs(c_loss)
+        given = {"SimGCL": ", noise", "XSimGCL": ", noise", "NGCF": ", keep mask",
+                 "LayerGCN": ", pruned R"}.get(name, "")
+        on_r = ("a float32 R" if r_dtype == "float32" else
+                "its default bf16 operator, bdot's bf16 route on the card")
+        say("lstep", f"one {name} step of {batch.users.shape[0]} edges on {on_r} "
+            f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}), card vs CPU on the same "
+            f"params, batch, negatives{given}: loss {g_loss:.7f} vs {c_loss:.7f} (rel "
+            f"{loss_rel:.2e}, bound {STEP_LOSS_RTOL:g}); worst gradient {worst[1]} at "
+            f"{worst[0]:.3f} of its bound (rtol {rtol:g} of the tensor's max + "
+            f"{STEP_ATOL:g} of the gradient's max {scale:.3e})")
+        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0, f"{name} card step disagrees")
+        del cpu_model, card_model, trainer, out
+    torch.cuda.empty_cache()
+
+    # 33. profile: one step of each of the six at beauty, bf16 operator and R
+    for name in ("LightGCN",) + LINEAR_MODELS:
+        cfg, _ = path_config(name, args)
+        model = build_model(cfg, ds, device)
+        trainer = Trainer(model, ds, cfg)
+        params = trainer.init_params()
+        opt = trainer.make_optimizer(params)
+        model.pre_epoch(params, 0)  # LayerGCN's pruned R
+        batch = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)[0]
+        batch = dataclasses.replace(batch, neg_items=sample_negatives(
+            trainer.generator, batch.users, trainer.history, model.num_item,
+            cfg.neg_candidates))
+        n = getattr(model, "n_layers", 0)
+        what = {
+            "LightGCN": "the operator's rows: one user gather, one gather of the positive and "
+                        "negative items",
+            "BPR": "the tables' rows, no propagation",
+            "SimGCL": f"the operator's rows for BPR, two perturbed views of {n} layers on the "
+                      "bf16 R, two in-batch InfoNCE terms",
+            "XSimGCL": f"one perturbed forward of {n} layers on the bf16 R, its layer-1 view, two "
+                       "in-batch InfoNCE terms; no operator in the loss",
+            "NGCF": f"an edge-dropout mask, {n} hops through EdgeBags with self-loops and two "
+                    "linear maps a layer",
+            "LayerGCN": f"{n} layers of float32 products on the pruned R, cosine layer weights",
+        }[name]
+        torch.cuda.reset_peak_memory_stats()
+        device_profile(
+            "profile", f"one {name} training step of {cfg.batch_size} edges at {LINEAR_DATASET} "
+            f"({what}, backward, Adam)",
+            lambda: trainer.train_step(params, opt, batch),
+            os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+            groups={"index kernels (row and edge gathers, their scatters)": (
+                        "index", "gather", "scatter"),
+                    "GEMMs (products with the operator's rows or R, linear maps, backward)": (
+                        "gemm", "nvjet", "cutlass", "xmma"),
+                    "copy kernels (on a bf16 operator or R: bdot's backward's fp32 casts)": (
+                        "copy",),
+                    "reductions (norms, sums, logsumexp)": ("reduce_kernel", "logsumexp")})
+        say("profile", f"{name} step peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del model, trainer, params, opt
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t_start
+
+
 def path_config(name: str, args):
     """(Config, dataset name) of ``name`` as this script's CLI runs train
-    it: CF_Diff at MODEL_CONFIG on the baby-sized set, every other model at
-    its Model_YAML file's first combo on the sports-sized set."""
+    it: CF_Diff at MODEL_CONFIG on the baby-sized set, LightGCN at
+    LIGHTGCN_CONFIG and the rest of its family at their Model_YAML file's
+    first combo on the beauty-sized set, every other model at its first
+    combo on the sports-sized set."""
     from chaorec_tpu_torch.config import Config
 
     if name == "CF_Diff":
         return Config(data_path=DATASET, seed=args.seed, batch_size=TRAIN_BATCH,
                       **MODEL_CONFIG), DATASET
-    return (Config(Model=name, data_path=FREEDOM_DATASET, seed=args.seed)
-            .replace(**first_combo(name)[0]), FREEDOM_DATASET)
+    if name == "LightGCN":
+        return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
+    ds = LINEAR_DATASET if name in LINEAR_MODELS else FREEDOM_DATASET
+    return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
 
 def seeded_run(cfg, ds, device, steps=None):
@@ -1624,7 +1923,7 @@ def seeded_run(cfg, ds, device, steps=None):
 
 
 def determinism_phase(args, device, datasets) -> dict:
-    """Phase 30: each model twice from a fresh Trainer on one seed at the
+    """Phase 34: each model twice from a fresh Trainer on one seed at the
     path's shapes (CF_Diff one epoch, the others DET_STEPS steps), then an
     evaluation: the losses' bits and the rank lists must be equal. One JSON
     line per model; returns {model: that line}."""
@@ -2003,9 +2302,18 @@ def main(argv=None) -> int:
     k4 = scan_phase(gen, device, fds)
     seg_launches = seg_phases(args, device, fds)
     t0 = time.perf_counter()
-    determinism_phase(args, device, {DATASET: ds, FREEDOM_DATASET: fds})
+    bds = linear_dataset(args)
+    linear_s = time.perf_counter() - t0 + linear_gcn_phases(args, device, bds)
+    t0 = time.perf_counter()
+    det = determinism_phase(args, device, {DATASET: ds, FREEDOM_DATASET: fds,
+                                           LINEAR_DATASET: bds})
     say("determinism", f"{len(DET_MODELS)} models twice on one seed: equal loss bits and rank "
         f"lists; {time.perf_counter() - t0:.1f} s added to the run")
+    family = ("LightGCN",) + LINEAR_MODELS
+    family_det_s = sum(sum(det[n]["seconds"]) for n in family)
+    say("determinism", f"the linear-GCN family's share of the run: phases 30-33 and their data "
+        f"{linear_s:.1f} s, their {len(family)} models' determinism runs {family_det_s:.1f} s; "
+        f"{linear_s + family_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's

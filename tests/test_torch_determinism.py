@@ -23,13 +23,17 @@ from chaorec_tpu_torch.train import loop as tloop
 from test_torch_dccf import CFG as DCCF
 from test_torch_dgcf import CFG as DGCF
 from test_torch_freedom import CFG as FREEDOM
+from test_torch_lightgcn import BPR, LIGHTGCN
 from test_torch_mgat import CFG as MGAT
 from test_torch_ncl import CFG as NCL
+from test_torch_ngcf_layergcn import LAYERGCN, NGCF_FLAGS
 from test_torch_sgl import CFG as SGL
+from test_torch_simgcl import SIMGCL, XSIMGCL
 from test_torch_train import LEARN as CF_DIFF
 
 CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF": DGCF,
-           "DCCF": DCCF, "MGAT": MGAT}
+           "DCCF": DCCF, "MGAT": MGAT, "BPR": BPR, "LightGCN": LIGHTGCN, "SimGCL": SIMGCL,
+           "XSimGCL": XSIMGCL, "NGCF": NGCF_FLAGS, "LayerGCN": LAYERGCN}
 SEED = 42
 
 
