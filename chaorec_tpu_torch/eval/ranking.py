@@ -4,11 +4,13 @@ Counterpart of ``chaorec_tpu/eval/ranking.py`` (``gene_ranklist``,
 ``mask_and_topk`` and ``mask_and_topk_dense``). Users are scored in chunks
 over every item: embedding models by their (user, item) tables, bf16
 inputs with float32 products and sums (``gene_ranklist``, as the JAX
-package scores them), score-mode models by ``score_users``
-(``rank_from_scores``). Each user's seen items are set to the model's
-``mask_value`` (1e-6 in the reference's embedding models, -inf in the
-diffusion models); ``torch.topk`` keeps the best ``topk``; ids become
-global (0-based item id + num_user), as in the reference's rank lists.
+package scores them), score-mode models by ``scorer``: ``score_users``,
+or ``score_users_stateful`` with the model's state for a stateful model
+that has it, as the JAX trainer and export choose (``rank_from_scores``).
+Each user's seen items are set to the model's ``mask_value`` (1e-6 in the
+reference's embedding models, -inf in the diffusion models); ``torch.topk``
+keeps the best ``topk``; ids become global (0-based item id + num_user),
+as in the reference's rank lists.
 
 ``mask_rows`` is the one masking function of the port: the trainer's
 evaluation and ``serve.export_artifact`` both go through it. The JAX
@@ -42,18 +44,29 @@ def mask_and_topk(scores: torch.Tensor, hist: torch.Tensor, topk: int, num_user:
     return idx + num_user
 
 
+def scorer(model, params, state=None):
+    """``score_fn(user_ids) -> (n, num_item)`` of a score-mode model: its
+    ``score_users_stateful`` with ``state`` when it is stateful and has one
+    (DualVAE ranks by its cached latents), else its ``score_users``."""
+    if getattr(model, "stateful", False) and hasattr(model, "score_users_stateful"):
+        return lambda ids: model.score_users_stateful(params, state, ids)
+    return lambda ids: model.score_users(params, ids)
+
+
 @torch.no_grad()
 def rank_from_scores(model, params, history: torch.Tensor, topk: int = 50,
-                     user_chunk: int = 4096) -> torch.Tensor:
+                     user_chunk: int = 4096, state=None) -> torch.Tensor:
     """(num_user, topk) global item ids for every user of a score-mode
-    model, ``user_chunk`` users at a time; ``history`` (U, H) is the padded
-    history table on the model's device."""
+    model (with its ``state``, see ``scorer``), ``user_chunk`` users at a
+    time; ``history`` (U, H) is the padded history table on the model's
+    device."""
     n = history.shape[0]
     topk = min(topk, model.num_item)
+    score_fn = scorer(model, params, state)
     outs = []
     for start in range(0, n, user_chunk):
         ids = torch.arange(start, min(start + user_chunk, n), device=history.device)
-        scores = model.score_users(params, ids)
+        scores = score_fn(ids)
         outs.append(mask_and_topk(scores, history[ids], topk, model.num_user,
                                   float(model.mask_value)))
     return torch.cat(outs)

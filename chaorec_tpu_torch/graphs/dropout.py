@@ -91,40 +91,44 @@ class EdgeBags:
         return EdgeBags(segment_bags(u, i, num_user, edge_u.device),
                         segment_bags(i, u, num_item, edge_u.device))
 
-    def hop(self, w: torch.Tensor, xu: torch.Tensor, xi: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.users.sum(xi, w), self.items.sum(xu, w)
-
 
 class _EdgeHop(torch.autograd.Function):
-    """(new_u, new_i) = (A xi, A^T xu) for the weighted (U, I) incidence A:
-    the hop is symmetric, so the cotangents go back through the same sums."""
+    """(new_u, new_i) = (A xi, B^T xu) for the weighted (U, I) incidences A
+    (weights w) and B (weights w_i; B = A in one symmetric hop): each
+    cotangent goes back through the other side's sums, with that side's
+    weights."""
 
     @staticmethod
-    def forward(ctx, w, xu, xi, bags, edge_u, edge_i):
+    def forward(ctx, w, w_i, xu, xi, bags, edge_u, edge_i):
         ctx.bags = bags
-        ctx.save_for_backward(w, xu, xi, edge_u, edge_i)
-        return bags.hop(w, xu, xi)
+        ctx.save_for_backward(w, w_i, xu, xi, edge_u, edge_i)
+        return bags.users.sum(xi, w), bags.items.sum(xu, w_i)
 
     @staticmethod
     def backward(ctx, g_u, g_i):
-        w, xu, xi, edge_u, edge_i = ctx.saved_tensors
-        gw = None
+        w, w_i, xu, xi, edge_u, edge_i = ctx.saved_tensors
+        gw = gw_i = None
         if ctx.needs_input_grad[0]:
-            gw = (torch.sum(g_u[edge_u] * xi[edge_i].float(), dim=1)
-                  + torch.sum(g_i[edge_i] * xu[edge_u].float(), dim=1)).to(w.dtype)
-        gxu, gxi = ctx.bags.hop(w, g_u, g_i)
-        return (gw, gxu.to(xu.dtype) if ctx.needs_input_grad[1] else None,
-                gxi.to(xi.dtype) if ctx.needs_input_grad[2] else None, None, None, None)
+            gw = torch.sum(g_u[edge_u] * xi[edge_i].float(), dim=1).to(w.dtype)
+        if ctx.needs_input_grad[1]:
+            gw_i = torch.sum(g_i[edge_i] * xu[edge_u].float(), dim=1).to(w_i.dtype)
+        gxu = ctx.bags.users.sum(g_i, w_i) if ctx.needs_input_grad[2] else None
+        gxi = ctx.bags.items.sum(g_u, w) if ctx.needs_input_grad[3] else None
+        return (gw, gw_i, gxu.to(xu.dtype) if gxu is not None else None,
+                gxi.to(xi.dtype) if gxi is not None else None, None, None, None)
 
 
 def edge_propagate(edge_u: torch.Tensor, edge_i: torch.Tensor, w: torch.Tensor,
                    xu: torch.Tensor, xi: torch.Tensor, num_user: int, num_item: int,
-                   bags: Optional[EdgeBags] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One symmetric hop over weighted edges: (sum over a user's edges of
-    w xi[item], sum over an item's edges of w xu[user]), in float32, in a
-    fixed order (``EdgeBags``; built here when not given, which reads the
-    edges back to the host: a caller that hops often builds it once)."""
+                   bags: Optional[EdgeBags] = None, w_item: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One hop over weighted edges: (sum over a user's edges of w xi[item],
+    sum over an item's edges of w_item xu[user]), in float32, in a fixed
+    order (``EdgeBags``; built here when not given, which reads the edges
+    back to the host: a caller that hops often builds it once).
+    ``w_item`` (the edges' item-side weights, in the same edge order) is
+    ``w`` unless given: FKAN_GCF drops each side's edges with a mask of its
+    own."""
     if bags is None:
         bags = EdgeBags.build(edge_u, edge_i, num_user, num_item)
-    return _EdgeHop.apply(w, xu, xi, bags, edge_u, edge_i)
+    return _EdgeHop.apply(w, w if w_item is None else w_item, xu, xi, bags, edge_u, edge_i)

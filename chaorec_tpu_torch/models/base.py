@@ -5,11 +5,15 @@ holds its hyperparameters and its data buffers (tensors on one device);
 its methods are functions of an explicit params dict of tensors:
 
 - ``init_params(generator) -> params`` (made on the generator's device)
-- ``init_state(device)`` for stateful models, else None
+- ``init_state(device, generator)`` for stateful models, else None (a
+  state with random entries, such as DualVAE's caches, draws them from
+  ``generator``)
 - ``embeddings(params) -> (user_emb, item_emb)`` when ``rank_mode`` is
   "embeddings"
 - ``score_users(params, user_ids) -> (n, num_item)`` scores before masking
-  when ``rank_mode`` is "scores"
+  when ``rank_mode`` is "scores"; a stateful model that ranks by its state
+  (DualVAE's cached latents) has ``score_users_stateful(params, state,
+  user_ids)`` instead (``eval/ranking.scorer`` picks it)
 - ``loss_stateful(params, state, batch, generator) -> (loss, new_state)``
   for stateful models; the loss is differentiable in ``params``, the new
   state is not
@@ -22,6 +26,10 @@ its methods are functions of an explicit params dict of tensors:
   ``loss_tables(dense_params, gathered_rows, batch, generator)`` (the same
   math as ``loss``) and steps each table with the row-sparse Adam
   (``ops/indexed_adam.py``), so no dense table gradient exists
+
+``needs_int_items``: the trainer draws each "bpr" row a second item from
+outside the user's history, ``Batch.int_items`` (MCLN's "interest"
+items), after its negative.
 
 ``trainer_mode`` names the batches the trainer feeds: "user_rows" for
 models that train on whole interaction rows of shuffled users (the
@@ -47,14 +55,17 @@ Params = Dict[str, torch.Tensor]
 class Batch:
     """One training batch: user ids (B,) and their row weights (B,), by
     which every loss is a weighted mean; for "bpr" models also each row's
-    positive and negative item (B,), 0-based. ``index`` is the batch's
-    position in its epoch. A "user_rows" batch has no items."""
+    positive and negative item (B,), 0-based, and for a model that
+    ``needs_int_items`` a second item from outside the user's history.
+    ``index`` is the batch's position in its epoch. A "user_rows" batch
+    has no items."""
 
     users: torch.Tensor
     weights: torch.Tensor
     pos_items: Optional[torch.Tensor] = None
     neg_items: Optional[torch.Tensor] = None
     index: int = 0
+    int_items: Optional[torch.Tensor] = None
 
 
 class RecModel:
@@ -63,6 +74,7 @@ class RecModel:
     stateful: bool = False
     trainer_mode: str = "bpr"
     mask_value: float = 1e-6
+    needs_int_items: bool = False
 
     def __init__(self, num_user: int, num_item: int):
         self.num_user = num_user
@@ -71,7 +83,8 @@ class RecModel:
     def init_params(self, generator: torch.Generator) -> Params:
         raise NotImplementedError
 
-    def init_state(self, device: torch.device | str = "cpu") -> Optional[object]:
+    def init_state(self, device: torch.device | str = "cpu",
+                   generator: Optional[torch.Generator] = None) -> Optional[object]:
         return None
 
     def embeddings(self, params: Params) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -18,12 +18,21 @@ from chaorec_tpu_torch.models.bpr import BPRMF
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
 from chaorec_tpu_torch.models.dccf import DCCF
 from chaorec_tpu_torch.models.dgcf import DGCF
+from chaorec_tpu_torch.models.dhcf import DHCF
+from chaorec_tpu_torch.models.diffrec import DiffRec
+from chaorec_tpu_torch.models.dualvae import DualVAE
+from chaorec_tpu_torch.models.fkan_gcf import FKAN_GCF
 from chaorec_tpu_torch.models.freedom import FREEDOM
 from chaorec_tpu_torch.models.layergcn import LayerGCN
 from chaorec_tpu_torch.models.lightgcn import LightGCN
+from chaorec_tpu_torch.models.lightgode import LightGODE
+from chaorec_tpu_torch.models.macridvae import MacridVAE
+from chaorec_tpu_torch.models.mcln import MCLN
 from chaorec_tpu_torch.models.mgat import MGAT
+from chaorec_tpu_torch.models.multvae import MultVAE
 from chaorec_tpu_torch.models.ncl import NCL
 from chaorec_tpu_torch.models.ngcf import NGCF
+from chaorec_tpu_torch.models.selfcf import SelfCF
 from chaorec_tpu_torch.models.sgl import SGL
 from chaorec_tpu_torch.models.simgcl import SimGCL
 from chaorec_tpu_torch.models.xsimgcl import XSimGCL
@@ -58,14 +67,16 @@ def _feats(ds: RecDataset, device: torch.device) -> Tuple[torch.Tensor, torch.Te
             torch.from_numpy(ds.t_feat).to(device, torch.float32))
 
 
+def _dense_x(ds: RecDataset, device: torch.device) -> torch.Tensor:
+    """The dense (U, I) 0/1 interaction matrix on ``device``."""
+    return torch.from_numpy(dense_interactions(ds)).to(device)
+
+
 @register_model("CF_Diff")
 def _cf_diff(cfg: Config, ds: RecDataset, device: torch.device) -> CF_Diff:
     # The reference's grid also has ``dims``, which CAM_AE never reads.
-    return CF_Diff(
-        ds.num_user, ds.num_item,
-        torch.from_numpy(dense_interactions(ds)).to(device),
-        cfg.noise_scale, cfg.noise_min, cfg.noise_max, cfg.steps,
-    )
+    return CF_Diff(ds.num_user, ds.num_item, _dense_x(ds, device),
+                   cfg.noise_scale, cfg.noise_min, cfg.noise_max, cfg.steps)
 
 
 @register_model("FREEDOM")
@@ -173,3 +184,74 @@ def _layergcn(cfg: Config, ds: RecDataset, device: torch.device) -> LayerGCN:
                            compute_dtype=cfg.graph_compute_dtype)
     return LayerGCN(ds.num_user, ds.num_item, graph, cfg.dim_E, cfg.reg_weight,
                     cfg.n_layers, cfg.dropout)
+
+
+@register_model("MultVAE")
+def _multvae(cfg: Config, ds: RecDataset, device: torch.device) -> MultVAE:
+    # main.py:304: MultVAE(num_user, num_item, train_data, dict, dim_E, reg_weight, device)
+    return MultVAE(ds.num_user, ds.num_item, _dense_x(ds, device), cfg.dim_E, cfg.reg_weight)
+
+
+@register_model("MacridVAE")
+def _macridvae(cfg: Config, ds: RecDataset, device: torch.device) -> MacridVAE:
+    # main.py:307-308: MacridVAE(num_user, num_item, train_data, dict, dim_E, reg_weight,
+    #   device)
+    return MacridVAE(ds.num_user, ds.num_item, _dense_x(ds, device), cfg.dim_E,
+                     cfg.reg_weight)
+
+
+@register_model("DualVAE")
+def _dualvae(cfg: Config, ds: RecDataset, device: torch.device) -> DualVAE:
+    # main.py:329-330: DualVAE(..., dim_E, reg_weight (the KL weight), ssl_alpha (the
+    #   contrastive weight), device)
+    return DualVAE(ds.num_user, ds.num_item, _dense_x(ds, device), cfg.reg_weight,
+                   cfg.ssl_alpha)
+
+
+@register_model("DiffRec")
+def _diffrec(cfg: Config, ds: RecDataset, device: torch.device) -> DiffRec:
+    # main.py:370-371: DiffRec(num_user, num_item, dict, noise_scale, noise_min,
+    #   noise_max, steps, dims, learning_rate, device)
+    return DiffRec(ds.num_user, ds.num_item, _dense_x(ds, device), cfg.noise_scale,
+                   cfg.noise_min, cfg.noise_max, cfg.steps, cfg.dims,
+                   sample_compute_dtype=cfg.graph_compute_dtype)
+
+
+@register_model("DHCF")
+def _dhcf(cfg: Config, ds: RecDataset, device: torch.device) -> DHCF:
+    # main.py:358-359: DHCF(..., dim_E, reg_weight, n_layers, dropout, device); the
+    # frozen DJconv weights are drawn from seed + 7, as the JAX package's _dhcf draws
+    # them from PRNGKey(seed + 7)
+    return DHCF(ds.num_user, ds.num_item, _dense_x(ds, device), cfg.dim_E, cfg.reg_weight,
+                cfg.n_layers, cfg.dropout, cfg.seed)
+
+
+@register_model("LightGODE")
+def _lightgode(cfg: Config, ds: RecDataset, device: torch.device) -> LightGODE:
+    # main.py:356-357: LightGODE(..., dim_E, gamma, t, device)
+    return LightGODE(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                     cfg.gamma, cfg.t)
+
+
+@register_model("SelfCF")
+def _selfcf(cfg: Config, ds: RecDataset, device: torch.device) -> SelfCF:
+    # main.py:344-345: SelfCF(..., dim_E, reg_weight, n_layers, dropout, device)
+    return SelfCF(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                  cfg.reg_weight, cfg.n_layers, cfg.dropout)
+
+
+@register_model("FKAN_GCF")
+def _fkan_gcf(cfg: Config, ds: RecDataset, device: torch.device) -> FKAN_GCF:
+    # main.py:351-353: FKAN_GCF(..., dim_E, reg_weight, n_layers, node_dropout,
+    #   message_dropout, grid_size, device)
+    return FKAN_GCF(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                    cfg.reg_weight, cfg.n_layers, cfg.node_dropout, cfg.message_dropout,
+                    cfg.grid_size)
+
+
+@register_model("MCLN")
+def _mcln(cfg: Config, ds: RecDataset, device: torch.device) -> MCLN:
+    # main.py:354-355: MCLN(..., dim_E, reg_weight, n_layers, n_mca, device)
+    v, t = _feats(ds, device)
+    return MCLN(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                cfg.reg_weight, cfg.n_layers, cfg.n_mca)

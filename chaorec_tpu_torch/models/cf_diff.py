@@ -99,7 +99,7 @@ class CF_Diff(RecModel):
             p[f"attn_out_b{i}"] = torch.zeros(e, device=generator.device)
         return p
 
-    def init_state(self, device: torch.device | str = "cpu"):
+    def init_state(self, device: torch.device | str = "cpu", generator=None):
         return diff.init_lt_state(self.steps, device)
 
     # ------------------------------------------------------------------

@@ -74,7 +74,7 @@ class DGCF(RecModel):
             "item_embedding": xavier_uniform(generator, (self.num_item, self.dim_E)),
         }
 
-    def init_state(self, device: torch.device | str = "cpu") -> torch.Tensor:
+    def init_state(self, device: torch.device | str = "cpu", generator=None) -> torch.Tensor:
         return torch.ones((self.n_factors, self.edge_u.shape[0]), dtype=torch.float32,
                           device=device)
 

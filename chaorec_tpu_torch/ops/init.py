@@ -49,6 +49,11 @@ def xavier_uniform(gen: torch.Generator, shape: Tuple[int, ...], gain: float = 1
     return _uniform(gen, shape, -bound, bound, dtype)
 
 
+def normal_init(gen: torch.Generator, shape: Tuple[int, ...], std: float = 0.1,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return std * torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+
+
 def torch_linear_init(gen: torch.Generator, out_features: int, in_features: int,
                       dtype: torch.dtype = torch.float32
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,3 +66,10 @@ def torch_linear_init(gen: torch.Generator, out_features: int, in_features: int,
     w = _uniform(gen, (out_features, in_features), -bound, bound, dtype)
     b = _uniform(gen, (out_features,), -bound, bound, dtype)
     return w, b
+
+
+def uniform01_init(gen: torch.Generator, shape: Tuple[int, ...],
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """torch ``nn.init.uniform_`` default U[0, 1) (MultVAE's layers,
+    Model/MultVAE.py:52-69)."""
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from chaorec_tpu_torch.eval.ranking import mask_rows as _mask_rows
+from chaorec_tpu_torch.eval.ranking import scorer
 
 FORMAT_VERSION = 1
 
@@ -58,7 +59,9 @@ def export_artifact(
     model_state)`` (DGCF's routing scores shape its tables).
     ``kind="ranklists"``: for rank_mode == "scores" models, per-user top-K
     global item ids and scores, ``eval_user_chunk`` users at a time on the
-    model's device, seen items set to ``model.mask_value``.
+    model's device (``score_users``, or ``score_users_stateful(params,
+    model_state, ids)`` for a stateful model that has it: DualVAE), seen
+    items set to ``model.mask_value``.
     """
     common = dict(
         format_version=FORMAT_VERSION,
@@ -84,10 +87,11 @@ def export_artifact(
     else:
         topk = min(score_topk, dataset.num_item)
         mask_value = float(model.mask_value)
+        score_fn = scorer(model, params, model_state)
         ids_out, scores_out = [], []
         for start in range(0, dataset.num_user, eval_user_chunk):
             end = min(start + eval_user_chunk, dataset.num_user)
-            scores = model.score_users(params, torch.arange(start, end))
+            scores = score_fn(torch.arange(start, end, device=model.device))
             hist = torch.from_numpy(dataset.history.values[start:end]).to(scores.device)
             v, i = torch.topk(_mask_rows(scores, hist, mask_value), topk, dim=1)
             ids_out.append(i.to(torch.int32).cpu().numpy() + dataset.num_user)

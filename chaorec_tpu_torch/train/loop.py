@@ -7,9 +7,13 @@ Counterpart of ``chaorec_tpu/train/loop.py`` for two kinds of model:
   the model state from batch to batch;
 - "bpr" models: each epoch shuffles the train edges; every batch of
   (user, positive) pairs gets one negative per row from outside the
-  user's history, drawn on the device. A stateful one (DGCF's routing
-  scores) steps on ``loss_stateful`` and carries its state from batch to
-  batch, and evaluates and exports with ``embeddings_stateful``. Models
+  user's history, drawn on the device, and then, for a model that
+  ``needs_int_items`` (MCLN), a second such item (``bpr_batch``). A
+  stateful one (DGCF's routing scores, the VAEs' anneal counters,
+  DualVAE's latent caches) steps on ``loss_stateful`` and carries its
+  state from batch to batch, and evaluates and exports with
+  ``embeddings_stateful``, or ranks with ``score_users_stateful`` when it
+  has it (``eval/ranking.scorer``). Models
   with ``table_params`` (FREEDOM's trainable feature tables) take the
   row-sparse table step: the batch's rows of each table are gathered as
   leaf tensors, one backward gives the dense gradients and the rows'
@@ -191,7 +195,8 @@ class Trainer:
         # One generator drives everything random in training: shuffles,
         # negatives, timesteps, noise and dropout.
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
-        self.model_state = model.init_state(self.device)
+        self.model_state = model.init_state(
+            self.device, torch.Generator(self.device).manual_seed(cfg.seed + 2))
         self.history = torch.from_numpy(dataset.history.values).to(self.device)
         self.edges = torch.from_numpy(dataset.train_edges).to(self.device, torch.int64)
         self.val_split = split_tensors(dataset, "val", self.device)
@@ -253,6 +258,19 @@ class Trainer:
                 self.table_count, lr, ADAM_BETAS[0], ADAM_BETAS[1], ADAM_EPS)
         return loss
 
+    def bpr_batch(self, batch: Batch) -> Batch:
+        """A "bpr" batch of (user, positive) rows completed for a step: one
+        negative a row, then (``needs_int_items``) one interest item a row,
+        each from outside the user's history, drawn from the trainer's
+        generator in that order."""
+        def outside():
+            return sample_negatives(self.generator, batch.users, self.history,
+                                    self.model.num_item, int(self.cfg.neg_candidates))
+
+        neg = outside()
+        return dataclasses.replace(batch, neg_items=neg,
+                                   int_items=outside() if self.model.needs_int_items else None)
+
     @deterministic_mode()
     def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:
         """One pass over every user (user_rows) or every edge (bpr); returns
@@ -264,10 +282,7 @@ class Trainer:
                 losses.append(self.train_step(params, optimizer, batch).detach())
         else:
             for batch in make_edge_batches(self.generator, self.edges, bs):
-                neg = sample_negatives(self.generator, batch.users, self.history,
-                                       self.model.num_item, int(self.cfg.neg_candidates))
-                loss = self.train_step(params, optimizer,
-                                       dataclasses.replace(batch, neg_items=neg))
+                loss = self.train_step(params, optimizer, self.bpr_batch(batch))
                 losses.append(loss.detach())
         return float(torch.stack(losses).sum())  # the epoch's one host sync
 
@@ -285,7 +300,8 @@ class Trainer:
                                       self.cfg.rank_topk, self.cfg.eval_user_chunk)
         else:
             rank_list = rank_from_scores(self.model, params, self.history,
-                                         self.cfg.rank_topk, self.cfg.eval_user_chunk)
+                                         self.cfg.rank_topk, self.cfg.eval_user_chunk,
+                                         self.model_state)
         val, test = gene_metrics_pair(rank_list, list(self.cfg.topk),
                                       self.val_split, self.test_split)
         return val, test, rank_list

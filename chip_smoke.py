@@ -36,7 +36,15 @@ published width with random weights from ``--seed``:
   (ops/linear_prop.py, built on the card in bf16) through the CLI's run,
   then the export and serving of its embeddings; BPR, SimGCL, XSimGCL (on
   the operator too), NGCF and LayerGCN at their Model_YAML file's first
-  combo. No TPU kernel lies on this path.
+  combo. No TPU kernel lies on this path;
+- the id-only models on the same beauty-sized set (with the loader's
+  synthetic 4096- and 384-wide features), each at its Model_YAML file's
+  first combo: MultVAE, MacridVAE (10 concepts, a 600-wide encoder) and
+  DualVAE (5 aspects of 25) on the stateful BPR branch, DiffRec ([I + 10
+  -> 1000 -> I], 5 steps) on the user-rows branch, DHCF, LightGODE,
+  SelfCF, FKAN_GCF and MCLN on the plain one; DualVAE's rank lists (from
+  its cached latents) and DiffRec's (-inf masked, a bf16 reverse process)
+  exported and served. No TPU kernel lies on this path.
 
 Phases, each printing its own lines:
 
@@ -156,11 +164,29 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the thirteen models twice from a fresh Trainer on
-            one seed at the path's shapes (CF_Diff one epoch, the others
-            20 steps), then an evaluation: equal loss bits and equal rank
-            lists, one JSON line per model with both runs' seconds; the
-            seconds phases 30-33 and the family's six models here added
+34. determinism  each of the 22 models twice from a fresh Trainer on one
+            seed at the path's shapes (CF_Diff and DiffRec one epoch, the
+            others 20 steps), then an evaluation: equal loss bits and equal
+            rank lists, one JSON line per model with both runs' seconds;
+            the seconds phases 30-33 and the family's six models here added
+35. idonly  MultVAE, MacridVAE, DualVAE, DiffRec, DHCF, LightGODE, SelfCF,
+            FKAN_GCF and MCLN cli.run, 1 epoch each at their first combo on
+            the beauty-sized set: loss, training and eval walls, eval users
+            per second, peak memory (no kernel launch expected)
+36. idserve DualVAE's and DiffRec's exported rank lists (phase 35's best
+            epoch) served over HTTP: answers equal the artifact and hold no
+            seen item; over the whole catalog the seen items rank last, at
+            the model's mask value (-inf for DiffRec, whose bf16 reverse
+            process is also held to 2^-6 of the float32 one's largest score)
+37. idstep  one step of each of the nine on the card against the same step
+            on the CPU, on phase 32's seeded 2048 x 1024 set on a float32
+            R, with equal params, batch, state and draws, the card's held to
+            the CPU's side of every ReLU kink (Kinks): the loss, every
+            gradient and the new state to phase 32's bounds; the card's step
+            again with TF32 products, the control, which MCLN's must fail
+38. idprofile device time by kernel group and idle share over one step of
+            each of the nine at the beauty-sized set, and its peak memory;
+            the seconds phases 35-38 and the nine's determinism runs added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -172,8 +198,9 @@ without the result line.
 
 With ``--data_root`` pointing at a directory holding ``baby/train.npy``,
 ``sports/train.npy``, ``beauty/train.npy`` etc., the real datasets are used instead of the
-synthetic ones. TF32 is off for matmuls and convolutions throughout: the
-plain versions the kernels are held to sum in full fp32, as the kernels do.
+synthetic ones. TF32 is off for matmuls and convolutions throughout (but
+for phase 37's control): the plain versions the kernels are held to sum in
+full fp32, as the kernels do.
 """
 
 from __future__ import annotations
@@ -297,10 +324,23 @@ STEP_SHAPE = (2048, 1024)  # phase 32's seeded set, users x items
 # another order, so either may land one bf16 ulp (2^-8 relative) away:
 # 2^-6 of the tensor's largest entry, far below what a wrong row would move.
 BF16_STEP_RTOL = 2.0 ** -6
+# Phases 35-38: the models that need no kernel and no new trainer branch,
+# each at its Model_YAML file's first combo on the beauty-sized set (with
+# the synthetic 4096- and 384-wide features MCLN reads); phase 36 serves
+# the exports of the stateful score model and of the -inf-masked one.
+IDONLY_MODELS = ("MultVAE", "MacridVAE", "DualVAE", "DiffRec", "DHCF", "LightGODE", "SelfCF",
+                 "FKAN_GCF", "MCLN")
+IDONLY_SERVED = ("DualVAE", "DiffRec")
+# DiffRec's served scores come from a reverse process whose products are of
+# bf16 values; each is within this share of the largest score of the
+# float32 process's (as tests/test_torch_diffrec.py holds it on the CPU).
+P_SAMPLE_RTOL = 2.0 ** -6
 # Phase 34: every model twice on one seed, at the path's shapes, for equal
-# bits (CF_Diff one epoch, the others this many steps, then an evaluation)
+# bits (the user-rows models one epoch, the others this many steps, then an
+# evaluation)
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
-              "SimGCL", "XSimGCL", "NGCF", "LayerGCN")
+              "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS
+USER_ROW_MODELS = ("CF_Diff", "DiffRec")
 DET_STEPS = 20
 
 
@@ -867,7 +907,8 @@ def check_artifact(path: str, ds, snapshot: str):
     return rank_ids, hist_global
 
 
-def check_serving(phase: str, path: str, ds, device, rank_ids, hist_global) -> None:
+def check_serving(phase: str, path: str, ds, device, rank_ids, hist_global,
+                  model_name: str = "CF_Diff") -> None:
     """HTTP answers of a ranklists artifact equal the artifact, hold no seen
     item, and 404 on an unknown path; request latency."""
     from chaorec_tpu_torch.serve import Recommender, serve_http
@@ -877,7 +918,7 @@ def check_serving(phase: str, path: str, ds, device, rank_ids, hist_global) -> N
     port = srv.server_address[1]
     try:
         health = get_json(port, "/healthz")
-        check(health["ok"] and health["model"] == "CF_Diff", f"healthz: {health}")
+        check(health["ok"] and health["model"] == model_name, f"healthz: {health}")
         for users, k in (([0, 5, 17], 10), ([1, 2, 3, 100, 4095, 4096, ds.num_user - 1], 50)):
             resp = get_json(port, f"/recommend?user={','.join(map(str, users))}&k={k}")
             check(len(resp["results"]) == len(users), "wrong number of results")
@@ -897,7 +938,8 @@ def check_serving(phase: str, path: str, ds, device, rank_ids, hist_global) -> N
             t0 = time.perf_counter()
             get_json(port, "/recommend?user=0,5,17&k=10")
             lat.append((time.perf_counter() - t0) * 1e3)
-        say(phase, f"http on 127.0.0.1:{port} ({health['snapshot']} weights): healthz ok, "
+        say(phase, f"http on 127.0.0.1:{port} ({health['snapshot']} {model_name} rank lists): "
+            "healthz ok, "
             "2 recommend requests equal the artifact and hold no seen item, 404 on unknown "
             f"path; /recommend 3 users k=10 latency p50 {np.median(lat):.3f} ms, "
             f"p99 {np.percentile(lat, 99):.3f} ms over {len(lat)} requests")
@@ -1665,6 +1707,30 @@ class BuildProbe:
         self.cli.build_model, self.builders.build_weighted_op = self.build_model, self.build_op
 
 
+class ExportTimer:
+    """While active, times each ``serve.export_artifact`` call (the device
+    synchronized at both ends)."""
+
+    def __enter__(self):
+        from chaorec_tpu_torch import serve
+
+        self.serve, self.orig, self.seconds = serve, serve.export_artifact, 0.0
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        serve.export_artifact = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.serve.export_artifact = self.orig
+
+
 def describe_op(built) -> str:
     op = built["op"]
     return (f"combined operator of {built['layers']} layers on {op.m_uu.device}, "
@@ -1674,13 +1740,14 @@ def describe_op(built) -> str:
 
 
 def linear_dataset(args):
-    """The beauty-sized set phases 30-33 share: ``--data_root``'s, or a
-    synthetic one."""
+    """The beauty-sized set phases 30-38 share: ``--data_root``'s, or a
+    synthetic one, with the loader's synthetic image and text features
+    (MCLN reads them; the edges are those of the set without them)."""
     from chaorec_tpu_torch.data.loading import data_load
 
     t0 = time.perf_counter()
-    ds = (data_load(LINEAR_DATASET, args.data_root) if args.data_root
-          else synthetic_dataset(LINEAR_DATASET, args.seed))
+    ds = (data_load(LINEAR_DATASET, args.data_root, has_v=True, has_t=True) if args.data_root
+          else synthetic_dataset(LINEAR_DATASET, args.seed, features=True))
     say("lightgcn", f"{'data_load' if args.data_root else 'synthetic'} {LINEAR_DATASET} "
         f"({ds.num_user}, {ds.num_item}), {ds.num_edges} train edges: "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1688,9 +1755,10 @@ def linear_dataset(args):
 
 
 def linear_cli_run(phase, device, ds, name, cfg, grid):
-    """One ``cli.run`` of a linear-GCN family model on ``ds``, where no
-    kernel launch is expected; prints each epoch's loss, walls and peak
-    memory and each operator's build. Returns (models, operators) built."""
+    """One ``cli.run`` of a model on ``ds`` whose path reaches no kernel (the
+    linear-GCN family's, the id-only models'), where no kernel launch is
+    expected; prints each epoch's loss, walls and peak memory, each
+    operator's build and the export's wall. Returns (models, operators)."""
     from chaorec_tpu_torch import cli
 
     probe = EpochProbe()
@@ -1699,7 +1767,7 @@ def linear_cli_run(phase, device, ds, name, cfg, grid):
     reset_counts()
     t0 = time.perf_counter()
     try:
-        with BuildProbe() as built:
+        with BuildProbe() as built, ExportTimer() as export:
             best = cli.run(cfg, grid, ds, device)
             torch.cuda.synchronize()
     finally:
@@ -1714,9 +1782,11 @@ def linear_cli_run(phase, device, ds, name, cfg, grid):
             f"{ds.num_user / ep['eval_s']:.0f} users/s), peak device memory "
             f"{ep['peak_gib']:.2f} GiB")
     combo = {k: grid[k][0] for k in grid["hyper_parameters"]}
-    n_batches = math.ceil(ds.num_edges / cfg.batch_size)
+    user_rows = built.models[0].trainer_mode == "user_rows"
+    n_batches = math.ceil((ds.num_user if user_rows else ds.num_edges) / cfg.batch_size)
+    exported = f" + export {export.seconds:.3f} s" if cfg.export_artifact else ""
     say(phase, f"{name} cli.run {combo}: {cfg.num_epoch} epochs x {n_batches} batches of "
-        f"{cfg.batch_size}{' + export' if cfg.export_artifact else ''}: {run_s:.3f} s wall; "
+        f"{cfg.batch_size} {'users' if user_rows else 'edges'}{exported}: {run_s:.3f} s wall; "
         f"kernel launches {others} (expected none: no TPU kernel lies on this path)")
     check(not any(others), f"{name} launched {others}")
     check(len(probe.epochs) == cfg.num_epoch, f"{len(probe.epochs)} epochs logged")
@@ -1742,7 +1812,7 @@ def linear_gcn_phases(args, device, ds) -> float:
     """Phases 30-33: LightGCN's CLI run on beauty with its export served,
     the other five models' runs, one step of each on the card against the
     CPU, and the six models' step profiles. Returns their wall seconds."""
-    from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
+    from chaorec_tpu_torch.data.sampling import make_edge_batches
     from chaorec_tpu_torch.models import build_model
     from chaorec_tpu_torch.params import clone_to
     from chaorec_tpu_torch.train.loop import Trainer
@@ -1790,10 +1860,8 @@ def linear_gcn_phases(args, device, ds) -> float:
                       for m in (cpu_model, card_model)), "no bf16 operator for the step")
         trainer = Trainer(cpu_model, sds, cfg)
         params = trainer.init_params()
-        batch = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)[0]
-        batch = dataclasses.replace(batch, neg_items=sample_negatives(
-            trainer.generator, batch.users, trainer.history, cpu_model.num_item,
-            cfg.neg_candidates))
+        batch = trainer.bpr_batch(make_edge_batches(trainer.generator, trainer.edges,
+                                                    cfg.batch_size)[0])
         draws = step_loss(cpu_model)[1](trainer.generator)
         out = []  # (loss, gradients) on the CPU, then on the card
         for model in (cpu_model, card_model):
@@ -1836,10 +1904,8 @@ def linear_gcn_phases(args, device, ds) -> float:
         params = trainer.init_params()
         opt = trainer.make_optimizer(params)
         model.pre_epoch(params, 0)  # LayerGCN's pruned R
-        batch = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)[0]
-        batch = dataclasses.replace(batch, neg_items=sample_negatives(
-            trainer.generator, batch.users, trainer.history, model.num_item,
-            cfg.neg_candidates))
+        batch = trainer.bpr_batch(make_edge_batches(trainer.generator, trainer.edges,
+                                                    cfg.batch_size)[0])
         n = getattr(model, "n_layers", 0)
         what = {
             "LightGCN": "the operator's rows: one user gather, one gather of the positive and "
@@ -1873,12 +1939,302 @@ def linear_gcn_phases(args, device, ds) -> float:
     return time.perf_counter() - t_start
 
 
+def batch_to(batch, device):
+    """A Batch with each of its tensors on ``device``."""
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).to(device) for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)})
+
+
+class Kinks:
+    """The side of each ReLU kink a step takes, recorded on one step and
+    held to on another.
+
+    A ReLU's gradient jumps at 0, so two devices whose float32 roundings
+    differ by an ulp can put a unit that lies within an ulp of 0 on
+    opposite sides, and their gradients then differ by that unit's whole
+    share, whatever their precision. ``record()`` notes, call by call, the
+    mask ``x > 0`` of every ``F.relu`` and ``F.leaky_relu`` a step calls;
+    ``replay()`` computes each such call as ``x`` times the recorded mask
+    (the negative slope where it is 0), so that the second step takes the
+    first one's side of every kink and differs from it only by rounding;
+    ``compare()`` leaves the calls as they are. Under both, ``flips``
+    counts the units whose own side differs from the recorded one."""
+
+    def __init__(self):
+        self.masks, self.flips, self._next = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, mode):
+        import torch.nn.functional as F
+
+        relu, leaky = F.relu, F.leaky_relu
+        self.flips, self._next = 0, 0
+
+        def pinned(fn, x, slope, *args, **kwargs):
+            side = (x > 0).detach()
+            if mode == "record":
+                self.masks.append(side)
+                return fn(x, *args, **kwargs)
+            mask = self.masks[self._next].to(x.device)
+            self._next += 1
+            self.flips += int((side != mask).sum())
+            if mode == "compare":
+                return fn(x, *args, **kwargs)
+            return x * torch.where(mask, 1.0, slope).to(x.dtype)
+
+        F.relu = lambda x, inplace=False: pinned(relu, x, 0.0)
+        F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: pinned(
+            leaky, x, negative_slope, negative_slope)
+        if mode == "record":
+            self.masks = []
+        try:
+            yield self
+        finally:
+            F.relu, F.leaky_relu = relu, leaky
+        check(mode == "record" or self._next == len(self.masks),
+              f"a step took {self._next} ReLU calls, its record {len(self.masks)}")
+
+    def record(self):
+        return self._patched("record")
+
+    def replay(self):
+        return self._patched("replay")
+
+    def compare(self):
+        return self._patched("compare")
+
+
+def first_batch(trainer, cfg):
+    """The first batch of an epoch as the trainer makes it: shuffled user
+    rows, or shuffled edges completed by ``bpr_batch``."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches, make_epoch_batches
+
+    if trainer.user_rows:
+        return make_epoch_batches(trainer.generator, trainer.dataset.num_user,
+                                  cfg.batch_size)[0]
+    return trainer.bpr_batch(make_edge_batches(trainer.generator, trainer.edges,
+                                               cfg.batch_size)[0])
+
+
+def draws_step(model, params, state, batch, draws):
+    """(loss, new state or None) of one step of an id-only model with its
+    random draws given (``draws`` None: a model that draws nothing)."""
+    if model.stateful:
+        return model.loss_stateful_with_draws(params, state, batch, draws)
+    if hasattr(model, "loss_with_draws"):
+        return model.loss_with_draws(params, batch, draws), None
+    return model.loss(params, batch, None), None
+
+
+def flat_state(state):
+    """A model state as {name: float32 CPU tensor} (None stays None): a
+    tensor, a tuple of tensors (DiffRec's loss history and its counts) or a
+    dict (DualVAE's caches)."""
+    if state is None:
+        return None
+    if isinstance(state, torch.Tensor):
+        state = {"state": state}
+    elif not isinstance(state, dict):
+        state = {str(i): t for i, t in enumerate(state)}
+    return {n: t.detach().float().cpu() for n, t in state.items()}
+
+
+def device_step(model, params, state, batch, draws, kinks):
+    """(loss, {leaf: gradient on the CPU}, new state as ``flat_state``) of
+    one step of an id-only model on its own device, from copies of
+    ``params``, ``state``, ``batch`` and ``draws``, under the trainer's
+    deterministic mode and ``kinks`` (a ``Kinks`` mode)."""
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train.loop import deterministic_mode
+
+    on = model.device
+    leaves = {n: t.detach().to(on, copy=True).requires_grad_() for n, t in params.items()}
+    with deterministic_mode(), kinks:
+        loss, new_state = draws_step(model, leaves, clone_to(state, on), batch_to(batch, on),
+                                     clone_to(draws, on))
+        loss.backward()
+    grads = {n: (torch.zeros_like(t) if t.grad is None else t.grad).cpu()
+             for n, t in leaves.items()}
+    return loss.item(), grads, flat_state(new_state)
+
+
+def worst_share(got: dict, want: dict):
+    """(worst ratio of an entry's error to its bound, its name) over
+    ``want``'s tensors: rtol STEP_RTOL of the tensor's largest entry plus
+    STEP_ATOL of the largest entry of them all."""
+    scale = max(w.abs().max().item() for w in want.values())
+    return max(((got[n] - w).abs().max().item()
+                / (STEP_RTOL * w.abs().max().item() + STEP_ATOL * scale), n)
+               for n, w in want.items())
+
+
+def idonly_phases(args, device, ds) -> float:
+    """Phases 35-38: the nine id-only models' CLI runs on beauty (DualVAE's
+    and DiffRec's exports served), one step of each on the card against the
+    CPU, and each one's step profile; no kernel launch expected anywhere.
+    Returns their wall seconds."""
+    from chaorec_tpu_torch.eval.ranking import mask_rows, scorer
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.train.loop import Trainer, deterministic_mode
+
+    t_start = time.perf_counter()
+    # 35. idonly: cli.run of each, one epoch at its first combo --------------
+    # 36. idserve: DualVAE's and DiffRec's exports of that epoch, served
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in IDONLY_MODELS:
+            cfg, _ = path_config(name, args)
+            art = os.path.join(tmp, f"{name}.npz") if name in IDONLY_SERVED else ""
+            models, _ = linear_cli_run("idonly", device, ds, name,
+                                       cfg.replace(num_epoch=1, log_dir=args.out_dir,
+                                                   export_artifact=art),
+                                       first_combo(name)[1])
+            model = models[0]
+            check(model.device.type == device.type and not model.table_params,
+                  f"{name} is not on the card")
+            if art:
+                reset_counts()
+                rank_ids, hist_global = check_artifact(art, ds, "best-epoch")
+                check_serving("idserve", art, ds, device, rank_ids, hist_global, name)
+                # the masking rule on the card, over the whole catalog: seen
+                # items are each user's last (at -inf: DiffRec) whatever the
+                # unseen items score
+                gen = torch.Generator(device).manual_seed(args.seed)
+                params = model.init_params(gen)
+                state = model.init_state(device, gen)
+                ids = torch.arange(64, device=device)
+                hist = torch.from_numpy(ds.history.values[:64]).to(device)
+                with deterministic_mode():
+                    scores = scorer(model, params, state)(ids)
+                    masked = mask_rows(scores, hist, float(model.mask_value))
+                    order = torch.topk(masked, model.num_item, dim=1).indices.cpu().numpy()
+                seen_at = mask_rows(torch.zeros_like(scores), hist, 1.0).bool()
+                check(bool((masked[seen_at] == float(model.mask_value)).all()),
+                      f"{name}: a seen item is not at the mask value")
+                for u in range(64):
+                    n = int(ds.history.lengths[u])
+                    seen = set(ds.history.values[u, :n].tolist())
+                    check(set(order[u, model.num_item - n:].tolist()) == seen,
+                          f"{name} user {u}: seen items not ranked last")
+                how = ("score_users_stateful over the trainer's carried caches"
+                       if hasattr(model, "score_users_stateful") else "score_users")
+                extra = ""
+                if name == "DiffRec":
+                    check(model.sample_dtype == torch.bfloat16
+                          and model.mask_value == float("-inf"),
+                          "DiffRec did not rank by a bf16 p_sample with -inf masking")
+                    model.sample_dtype = None
+                    with deterministic_mode():
+                        f32 = model.score_users(params, ids)
+                    model.sample_dtype = torch.bfloat16
+                    rel = ((scores - f32).abs().max() / f32.abs().max()).item()
+                    extra = (f"; the bf16 p_sample against the float32 one: max abs diff "
+                             f"{rel:.2e} of the largest score (bound {P_SAMPLE_RTOL:g}), top-50 "
+                             f"agreement {top_overlap(scores, f32, 50):.4f}")
+                    check(rel <= P_SAMPLE_RTOL,
+                          f"DiffRec's bf16 p_sample is {rel:.2e} of the largest score away "
+                          f"from the float32 one")
+                others = other_counts()
+                say("idserve", f"{name}: ranked by {how}, seen items masked with "
+                    f"{float(model.mask_value):g} and last over all {model.num_item} items for "
+                    f"64 users on the card{extra}; kernel launches {others} (expected none)")
+                check(not any(others), f"{name} serving launched {others}")
+                del params, state, scores, masked
+            del models, model
+            torch.cuda.empty_cache()
+
+    # 37. idstep: one step of each on the card against the same on the CPU --
+    # (the card's held to the CPU's side of every ReLU kink, see Kinks), and
+    # the card's again with TF32 products allowed: the control, which
+    # MCLN's must fail
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE, features=True)
+    for name in IDONLY_MODELS:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+        if name == "DHCF":  # each device's generator draws its own frozen W
+            card_model.load_frozen_weights(cpu_model.frozen_w)
+        trainer = Trainer(cpu_model, sds, cfg)
+        params, state = trainer.init_params(), trainer.model_state
+        batch = first_batch(trainer, cfg)
+        draws = (cpu_model.draws(trainer.generator, batch, state)
+                 if hasattr(cpu_model, "draws") else None)
+        kinks = Kinks()
+        c_loss, c_grads, c_state = device_step(cpu_model, params, state, batch, draws,
+                                               kinks.record())
+        reset_counts()
+        g_loss, g_grads, g_state = device_step(card_model, params, state, batch, draws,
+                                               kinks.replay())
+        others, flips = other_counts(), kinks.flips
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, t_grads, _ = device_step(card_model, params, state, batch, draws, kinks.replay())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        worst, control = worst_share(g_grads, c_grads), worst_share(t_grads, c_grads)
+        loss_rel = abs(g_loss - c_loss) / abs(c_loss)
+        state_msg, state_ok = "", True
+        if c_state is not None:
+            s_worst = worst_share(g_state, c_state)
+            state_ok = s_worst[0] <= 1.0
+            state_msg = f"; new state: worst {s_worst[1]} at {s_worst[0]:.3f} of the same bound"
+        given = {"MultVAE": "dropout mask, eps", "MacridVAE": "dropout mask, Gumbel uniforms, eps",
+                 "DualVAE": "eps, caches", "DiffRec": "timesteps, noise, dropout mask",
+                 "SelfCF": "rate, edge uniforms, target masks", "MCLN": "interest items",
+                 "DHCF": "frozen W"}.get(name, "")
+        say("idstep", f"one {name} step of {batch.users.shape[0]} "
+            f"{'users' if trainer.user_rows else 'edges'} on a float32 R ({sds.num_user} x "
+            f"{sds.num_item}, dim {cfg.dim_E}), card vs CPU on the same params, batch"
+            f"{', ' + given if given else ''}, ReLU sides: loss {g_loss:.7f} vs {c_loss:.7f} "
+            f"(rel {loss_rel:.2e}, bound {STEP_LOSS_RTOL:g}); worst gradient {worst[1]} at "
+            f"{worst[0]:.3f} of its bound (rtol {STEP_RTOL:g} of the tensor's max + "
+            f"{STEP_ATOL:g} of the gradient's max){state_msg}; ReLU units the card put on the "
+            f"other side {flips}; with TF32 products (the control) worst {control[1]} at "
+            f"{control[0]:.3f}; kernel launches {others}")
+        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0 and state_ok and not any(others),
+              f"{name} card step disagrees")
+        check(name != "MCLN" or control[0] > 1.0,
+              f"{name}: the gate did not see TF32 products (control at {control[0]:.3f})")
+        del cpu_model, card_model, trainer
+    torch.cuda.empty_cache()
+
+    # 38. idprofile: one step of each at beauty under the profiler -----------
+    groups = {"GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "index kernels (gathers, their scatters, index_copy)": ("index", "gather",
+                                                                      "scatter"),
+              "reductions (norms, sums, softmax, logsumexp)": ("reduce_kernel", "softmax",
+                                                               "logsumexp"),
+              "elementwise": ("elementwise",)}
+    for name in IDONLY_MODELS:
+        cfg, _ = path_config(name, args)
+        model = build_model(cfg, ds, device)
+        trainer = Trainer(model, ds, cfg)
+        params = trainer.init_params()
+        opt = trainer.make_optimizer(params)
+        batch = first_batch(trainer, cfg)
+        rows = "users" if trainer.user_rows else "edges"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        device_profile("idprofile", f"one {name} training step of {cfg.batch_size} {rows} at "
+                       f"{LINEAR_DATASET} (forward, backward, Adam)",
+                       lambda: trainer.train_step(params, opt, batch),
+                       os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+                       groups=groups)
+        others = other_counts()
+        say("idprofile", f"{name} step peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel launches {others}")
+        check(not any(others), f"{name} step launched {others}")
+        del model, trainer, params, opt
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t_start
+
+
 def path_config(name: str, args):
     """(Config, dataset name) of ``name`` as this script's CLI runs train
     it: CF_Diff at MODEL_CONFIG on the baby-sized set, LightGCN at
     LIGHTGCN_CONFIG and the rest of its family at their Model_YAML file's
-    first combo on the beauty-sized set, every other model at its first
-    combo on the sports-sized set."""
+    first combo on the beauty-sized set, and so the id-only models, every
+    other model at its first combo on the sports-sized set."""
     from chaorec_tpu_torch.config import Config
 
     if name == "CF_Diff":
@@ -1886,16 +2242,17 @@ def path_config(name: str, args):
                       **MODEL_CONFIG), DATASET
     if name == "LightGCN":
         return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
-    ds = LINEAR_DATASET if name in LINEAR_MODELS else FREEDOM_DATASET
+    ds = LINEAR_DATASET if name in LINEAR_MODELS + IDONLY_MODELS else FREEDOM_DATASET
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
 
 def seeded_run(cfg, ds, device, steps=None):
     """(losses, rank list, seconds) of a fresh Trainer on ``cfg``'s seed:
     pre_epoch, then one whole epoch (``steps`` None) or its first
-    ``steps`` batches, then ``evaluate``; all under the trainer's
-    deterministic mode, where the package has one."""
-    from chaorec_tpu_torch.data.sampling import make_edge_batches, sample_negatives
+    ``steps`` batches (completed by ``Trainer.bpr_batch``: negatives, and
+    MCLN's interest items), then ``evaluate``; all under the trainer's
+    deterministic mode."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches
     from chaorec_tpu_torch.models import build_model
     from chaorec_tpu_torch.train import loop
 
@@ -1904,19 +2261,15 @@ def seeded_run(cfg, ds, device, steps=None):
     trainer = loop.Trainer(model, ds, cfg)
     params = trainer.init_params()
     opt = trainer.make_optimizer(params)
-    with getattr(loop, "deterministic_mode", contextlib.nullcontext)():
+    with loop.deterministic_mode():
         model.pre_epoch(params, 0)
         if steps is None:
             losses = [trainer.train_epoch(params, opt)]
         else:
             batches = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)
-            losses = []
-            for batch in batches[:steps]:
-                neg = sample_negatives(trainer.generator, batch.users, trainer.history,
-                                       model.num_item, int(cfg.neg_candidates))
-                losses.append(trainer.train_step(params, opt,
-                                                 dataclasses.replace(batch, neg_items=neg)))
-            losses = torch.stack([x.detach() for x in losses]).cpu().numpy()
+            losses = [trainer.train_step(params, opt, trainer.bpr_batch(batch)).detach()
+                      for batch in batches[:steps]]
+            losses = torch.stack(losses).cpu().numpy()
         rank = trainer.evaluate(params)[2].cpu().numpy()
     torch.cuda.synchronize()
     return np.asarray(losses, np.float32), rank, time.perf_counter() - t0
@@ -1924,13 +2277,13 @@ def seeded_run(cfg, ds, device, steps=None):
 
 def determinism_phase(args, device, datasets) -> dict:
     """Phase 34: each model twice from a fresh Trainer on one seed at the
-    path's shapes (CF_Diff one epoch, the others DET_STEPS steps), then an
-    evaluation: the losses' bits and the rank lists must be equal. One JSON
-    line per model; returns {model: that line}."""
+    path's shapes (the user-rows models one epoch, the others DET_STEPS
+    steps), then an evaluation: the losses' bits and the rank lists must be
+    equal. One JSON line per model; returns {model: that line}."""
     out = {}
     for name in DET_MODELS:
         cfg, ds_name = path_config(name, args)
-        steps = None if name == "CF_Diff" else DET_STEPS
+        steps = None if name in USER_ROW_MODELS else DET_STEPS
         (l1, r1, s1), (l2, r2, s2) = (seeded_run(cfg, datasets[ds_name], device, steps)
                                       for _ in range(2))
         line = {"determinism": name, "steps": "1 epoch" if steps is None else steps,
@@ -2314,6 +2667,11 @@ def main(argv=None) -> int:
     say("determinism", f"the linear-GCN family's share of the run: phases 30-33 and their data "
         f"{linear_s:.1f} s, their {len(family)} models' determinism runs {family_det_s:.1f} s; "
         f"{linear_s + family_det_s:.1f} s in all")
+    idonly_s = idonly_phases(args, device, bds)
+    idonly_det_s = sum(sum(det[n]["seconds"]) for n in IDONLY_MODELS)
+    say("idprofile", f"the id-only models' share of the run: phases 35-38 {idonly_s:.1f} s, "
+        f"their {len(IDONLY_MODELS)} models' determinism runs {idonly_det_s:.1f} s; "
+        f"{idonly_s + idonly_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's

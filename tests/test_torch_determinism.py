@@ -22,7 +22,9 @@ from chaorec_tpu_torch.models import cf_diff as tcf
 from chaorec_tpu_torch.train import loop as tloop
 from test_torch_dccf import CFG as DCCF
 from test_torch_dgcf import CFG as DGCF
+from test_torch_diffrec import FLAGS as DIFFREC
 from test_torch_freedom import CFG as FREEDOM
+from test_torch_idonly import FLAGS as IDONLY
 from test_torch_lightgcn import BPR, LIGHTGCN
 from test_torch_mgat import CFG as MGAT
 from test_torch_ncl import CFG as NCL
@@ -30,11 +32,18 @@ from test_torch_ngcf_layergcn import LAYERGCN, NGCF_FLAGS
 from test_torch_sgl import CFG as SGL
 from test_torch_simgcl import SIMGCL, XSIMGCL
 from test_torch_train import LEARN as CF_DIFF
+from test_torch_vae import FLAGS as VAES
 
 CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF": DGCF,
            "DCCF": DCCF, "MGAT": MGAT, "BPR": BPR, "LightGCN": LIGHTGCN, "SimGCL": SIMGCL,
-           "XSimGCL": XSIMGCL, "NGCF": NGCF_FLAGS, "LayerGCN": LAYERGCN}
+           "XSimGCL": XSIMGCL, "NGCF": NGCF_FLAGS, "LayerGCN": LAYERGCN, **VAES,
+           "DiffRec": DIFFREC, **{n: IDONLY[n] for n in ("DHCF", "LightGODE", "SelfCF",
+                                                          "FKAN_GCF", "MCLN")}}
 SEED = 42
+# The id-only models' CPU cases run on one torch thread, as their own port
+# tests do (test_torch_vae.one_torch_thread); the others keep the default
+# thread pool.
+ONE_THREAD = (*VAES, "DiffRec", "DHCF", "LightGODE", "SelfCF", "FKAN_GCF", "MCLN")
 
 
 def _run(ds, name, device, seed=SEED, epochs=2):
@@ -58,8 +67,18 @@ CASES = [pytest.param(name, "cpu", id=f"{name}-cpu") for name in CONFIGS] + [
     pytest.param(name, "cuda", id=f"{name}-cuda", marks=pytest.mark.cuda) for name in CONFIGS]
 
 
+@pytest.fixture
+def threads(name, device):
+    """One torch thread for the CPU cases of ONE_THREAD's models."""
+    n = torch.get_num_threads()
+    if device == "cpu" and name in ONE_THREAD:
+        torch.set_num_threads(1)
+    yield torch.get_num_threads()
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name,device", CASES)
-def test_same_seed_runs_are_bit_identical(tiny_dataset, monkeypatch, name, device):
+def test_same_seed_runs_are_bit_identical(tiny_dataset, monkeypatch, threads, name, device):
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the atomic sums this pins exist only there")
     monkeypatch.setattr(tcf.CF_Diff, "dim_inters", 64)  # CF_Diff's small width
