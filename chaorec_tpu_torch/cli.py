@@ -5,6 +5,11 @@ the same YAML grid (``Model_YAML/{Model}.yaml``), the same log file
 (``log/{Model}_{data_path}.log``, overwritten) and line formats, the same
 grid-progress and best-performance blocks, and ``--export_artifact`` of the
 best combo's best epoch into the serving path (``serve.export_artifact``).
+Each combo is trained by its model's ``trainer_cls`` (the standard
+``Trainer`` unless the model names a family trainer: BSPM's
+``TrainFreeTrainer``, GFormer's ``GFormerTrainer``), and the export takes
+the trainer's weights as the JAX CLI does: ``best_params_host``, else
+``final_params``, else it logs that the trainer kept none and skips.
 
     python -m chaorec_tpu_torch.cli --Model FREEDOM --data_path sports [--device cpu]
 
@@ -90,7 +95,8 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
             idx + 1, len(combos), hyper_param_dict))
         combo_cfg = cfg.replace(**hyper_param_dict)
         model = build_model(combo_cfg, dataset, device)
-        trainer = Trainer(model, dataset, combo_cfg)
+        trainer_cls = getattr(model, "trainer_cls", Trainer)
+        trainer = trainer_cls(model, dataset, combo_cfg)
         current = trainer.run()
         current_recall = current[20]["recall"] if 20 in current else (
             current[max(current)]["recall"])
@@ -98,19 +104,33 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
             best_performance = current_recall
             best_params = dict(hyper_param_dict)
             best_metrics = current
-            # the trainer snapshots the best epoch whenever export is asked for
-            best_export = (model, trainer.best_params_host, trainer.best_mstate_host)
+            if cfg.export_artifact:
+                # the JAX CLI's fallbacks: a family trainer that keeps no
+                # weights of its own (BSPM's, GFormer's) has none to export
+                best_host = getattr(trainer, "best_params_host", None)
+                mstate = getattr(trainer, "best_mstate_host", None)
+                best_export = (
+                    model,
+                    best_host if best_host is not None
+                    else getattr(trainer, "final_params", None),
+                    mstate if mstate is not None else getattr(trainer, "model_state", None),
+                    "best-epoch" if best_host is not None else "final-epoch",
+                )
 
     if cfg.export_artifact:
-        from chaorec_tpu_torch.serve import export_artifact
+        model, params, mstate, snapshot = best_export
+        if params is None:
+            logging.warning("export_artifact: best combo's trainer kept no "
+                            "weights - skipping export")
+        else:
+            from chaorec_tpu_torch.serve import export_artifact
 
-        model, params, mstate = best_export
-        logging.info("export_artifact: exporting best-epoch weights to %s",
-                     cfg.export_artifact)
-        with deterministic_mode():
-            export_artifact(model, clone_to(params, model.device),
-                            clone_to(mstate, model.device), dataset, cfg.export_artifact,
-                            snapshot="best-epoch")
+            logging.info("export_artifact: exporting %s weights to %s", snapshot,
+                         cfg.export_artifact)
+            with deterministic_mode():
+                export_artifact(model, clone_to(params, model.device),
+                                clone_to(mstate, model.device), dataset, cfg.export_artifact,
+                                snapshot=snapshot)
 
     logging.info("Best performance: {:.5f}".format(best_performance))
     logging.info("Best parameters: {}".format(best_params))

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from chaorec_tpu_torch.config import Config
@@ -15,6 +16,7 @@ from chaorec_tpu_torch.data.loading import RecDataset, dense_interactions
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph, build_norm_adj
 from chaorec_tpu_torch.models import register_model
 from chaorec_tpu_torch.models.bpr import BPRMF
+from chaorec_tpu_torch.models.bspm import BSPM
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
 from chaorec_tpu_torch.models.dccf import DCCF
 from chaorec_tpu_torch.models.dgcf import DGCF
@@ -23,7 +25,11 @@ from chaorec_tpu_torch.models.diffrec import DiffRec
 from chaorec_tpu_torch.models.dualvae import DualVAE
 from chaorec_tpu_torch.models.fkan_gcf import FKAN_GCF
 from chaorec_tpu_torch.models.freedom import FREEDOM
+from chaorec_tpu_torch.models.gformer import GFormer
+from chaorec_tpu_torch.models.graphaug import GraphAug
+from chaorec_tpu_torch.models.hccf import HCCF
 from chaorec_tpu_torch.models.layergcn import LayerGCN
+from chaorec_tpu_torch.models.lightgcl import LightGCL
 from chaorec_tpu_torch.models.lightgcn import LightGCN
 from chaorec_tpu_torch.models.lightgode import LightGODE
 from chaorec_tpu_torch.models.macridvae import MacridVAE
@@ -35,9 +41,11 @@ from chaorec_tpu_torch.models.ngcf import NGCF
 from chaorec_tpu_torch.models.selfcf import SelfCF
 from chaorec_tpu_torch.models.sgl import SGL
 from chaorec_tpu_torch.models.simgcl import SimGCL
+from chaorec_tpu_torch.models.vgcl import VGCL
 from chaorec_tpu_torch.models.xsimgcl import XSimGCL
 from chaorec_tpu_torch.ops.linear_prop import (CombinedLinearOp, build_weighted_op,
                                                fits_linear_op, lightgcn_weights)
+from chaorec_tpu_torch.ops.svd import randomized_svd
 
 
 def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device) -> BipartiteGraph:
@@ -255,3 +263,64 @@ def _mcln(cfg: Config, ds: RecDataset, device: torch.device) -> MCLN:
     v, t = _feats(ds, device)
     return MCLN(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
                 cfg.reg_weight, cfg.n_layers, cfg.n_mca)
+
+
+@register_model("BSPM")
+def _bspm(cfg: Config, ds: RecDataset, device: torch.device) -> BSPM:
+    # main.py:368-369: BSPM(..., K_s, T_s, K_b, K_s(!), idl_beta, device): the
+    # reference passes K_s into the T_b slot. The spectral build's random
+    # draws come from seed + 11, as the JAX builder's PRNGKey(seed + 11).
+    graph = build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device, use_dense=True,
+                           eps=1e-7)
+    di = np.bincount(np.asarray(ds.train_edges)[:, 1], minlength=ds.num_item)
+    return BSPM(ds.num_user, ds.num_item, graph.dense_r,
+                torch.from_numpy(di.astype(np.float32)), cfg.K_s, cfg.T_s, cfg.K_b, cfg.K_s,
+                cfg.idl_beta, cfg.seed + 11)
+
+
+@register_model("GFormer")
+def _gformer(cfg: Config, ds: RecDataset, device: torch.device) -> GFormer:
+    # main.py:363-364: GFormer(num_user, num_item, train_data, dict, dim_E,
+    #   reg_weight, n_layers, pnn_layer, *ssl_alpha* (-> the ssl_reg slot), b2,
+    #   ctra, device)
+    return GFormer(ds.num_user, ds.num_item, ds.train_edges, cfg.dim_E, cfg.reg_weight,
+                   cfg.n_layers, cfg.pnn_layer, cfg.ssl_alpha, cfg.b2, cfg.ctra,
+                   seed=cfg.seed, device=device)
+
+
+@register_model("HCCF")
+def _hccf(cfg: Config, ds: RecDataset, device: torch.device) -> HCCF:
+    # main.py:311-313: HCCF(..., dim_E, reg_weight, n_layers, aggr_mode,
+    #   ssl_alpha, ssl_temp, keepRate, leaky, mult, device)
+    return HCCF(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                cfg.reg_weight, cfg.n_layers, cfg.ssl_alpha, cfg.ssl_temp, cfg.keepRate,
+                cfg.leaky, cfg.mult)
+
+
+@register_model("LightGCL")
+def _lightgcl(cfg: Config, ds: RecDataset, device: torch.device) -> LightGCL:
+    # main.py:309-310: LightGCL(..., dim_E, reg_weight, n_layers, aggr_mode, ssl_alpha,
+    #   ssl_temp, device). The SVD is of R as stored, in graph_compute_dtype (bf16
+    #   by default), cast to float32 after that rounding, as the JAX builder takes it.
+    graph = build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device, use_dense=True,
+                           compute_dtype=cfg.graph_compute_dtype, eps=0.0)
+    u, s, v = randomized_svd(torch.Generator(device).manual_seed(cfg.seed),
+                             graph.dense_r.to(torch.float32), LightGCL.q)
+    return LightGCL(ds.num_user, ds.num_item, graph, cfg.dim_E, cfg.reg_weight, cfg.n_layers,
+                    cfg.ssl_alpha, cfg.ssl_temp, svd_u_s=u * s[None, :],
+                    svd_v_s=v * s[None, :], svd_ut=u.T.contiguous(), svd_vt=v.T.contiguous())
+
+
+@register_model("VGCL")
+def _vgcl(cfg: Config, ds: RecDataset, device: torch.device) -> VGCL:
+    # main.py:333-334: VGCL(..., dim_E, reg_weight, n_layers, ssl_temp, ssl_alpha, device)
+    return VGCL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)
+
+
+@register_model("GraphAug")
+def _graphaug(cfg: Config, ds: RecDataset, device: torch.device) -> GraphAug:
+    # main.py:339-341: GraphAug(..., dim_E, reg_weight, n_layers, ssl_temp, ssl_alpha,
+    #   device): ssl_alpha is the contrast's weight
+    return GraphAug(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                    cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)

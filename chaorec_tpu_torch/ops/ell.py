@@ -19,7 +19,8 @@ a bag of at most ``BAG_CHUNK`` rows at a time, then the bags
 (``torch.nn.functional.embedding_bag``, no atomics), so its error is that
 of the segment's own sum, and a segment of thousands of rows costs a few
 short bags, not one long serial loop. ``bag_sum`` is its differentiable
-form (the gradient is a gather). SGL's views (``graphs/dropout.py``) and
+form (the gradient is a gather), and ``bag_gather`` the transposed twin (a
+gather whose gradient is a bag sum). SGL's views (``graphs/dropout.py``) and
 the edge softmax's sums (``ops/edge_softmax.py``) use it.
 
 The ELL matrices (``EllMatrix``, ``EllPattern``), the grouped primitives
@@ -196,3 +197,24 @@ def bag_sum(values: torch.Tensor, dest: torch.Tensor, bags: SegmentBags) -> torc
     ``segment_bags(dest, arange(E), S)``. Differentiable in ``values`` (the
     gradient is the gather ``g[dest]``)."""
     return _BagSum.apply(values, bags, dest)
+
+
+class _BagGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, bags):
+        ctx.bags = bags
+        ctx.dtype = x.dtype
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        out = ctx.bags.sum(g.reshape(g.shape[0], -1))
+        return out.reshape(-1, *g.shape[1:]).to(ctx.dtype), None, None
+
+
+def bag_gather(x: torch.Tensor, idx: torch.Tensor, bags: SegmentBags) -> torch.Tensor:
+    """``x[idx]`` whose gradient is summed per row of x in a fixed order
+    (``bags.sum`` of the cotangent) instead of by a scatter-add: ``bags`` is
+    ``segment_bags(idx, arange(E), x.shape[0])``, ``bag_sum``'s transposed
+    twin."""
+    return _BagGather.apply(x, idx, bags)

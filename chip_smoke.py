@@ -44,7 +44,18 @@ published width with random weights from ``--seed``:
   -> 1000 -> I], 5 steps) on the user-rows branch, DHCF, LightGODE,
   SelfCF, FKAN_GCF and MCLN on the plain one; DualVAE's rank lists (from
   its cached latents) and DiffRec's (-inf masked, a bf16 reverse process)
-  exported and served. No TPU kernel lies on this path.
+  exported and served. No TPU kernel lies on this path;
+- the family trainers and the in-batch contrastive models on the same
+  beauty-sized set, each at its Model_YAML file's first combo, through the
+  CLI's ``trainer_cls`` dispatch: BSPM (training-free: the Gram R^T R on
+  the card, its top-128 eigenvectors by the host's ARPACK, one scoring
+  pass) and GFormer (dim 64, 1 layer, 1 PNN layer, 32 anchors, 4 heads,
+  its graphs resampled on the host every 10 steps, a global-norm clip at
+  20; its three full-catalog terms a step through the streaming logsumexp
+  kernels), neither exported (their trainers keep no weights, as in the
+  JAX package); HCCF (3 layers), LightGCL (2 layers, a rank-5 SVD), VGCL (4
+  layers, k-means of 50 clusters a step) and GraphAug (3 layers, a MixHop
+  view learner, 100000 random edges a view) on the standard trainer.
 
 Phases, each printing its own lines:
 
@@ -164,7 +175,7 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the 22 models twice from a fresh Trainer on one
+34. determinism  each of the 27 trained models twice from a fresh trainer on one
             seed at the path's shapes (CF_Diff and DiffRec one epoch, the
             others 20 steps), then an evaluation: equal loss bits and equal
             rank lists, one JSON line per model with both runs' seconds;
@@ -187,6 +198,29 @@ Phases, each printing its own lines:
 38. idprofile device time by kernel group and idle share over one step of
             each of the nine at the beauty-sized set, and its peak memory;
             the seconds phases 35-38 and the nine's determinism runs added
+39. family  BSPM, GFormer, HCCF, LightGCL, VGCL and GraphAug cli.run at
+            their first combo on the beauty-sized set, BSPM one pass (its
+            spectral build and evaluation seconds), the others 2 epochs
+            (loss, training and eval walls, eval users per second, peak
+            memory); GFormer's K2 launches (3 terms a step, each kernel
+            counted; none elsewhere); BSPM's and GFormer's
+            --export_artifact skipped with the JAX CLI's warning
+40. k2gf    the streaming logsumexp at GFormer's three shapes (q rows of
+            the user or the item table against that table, whose gradient
+            sums dq and dk; the users against the item table) against the
+            plain version and its autograd at phase 3's gates, then each
+            kernel's time beside the plain version's, the library route's
+            and its bound
+41. famstep one step of each trained model on the card against the CPU on
+            phase 32's seeded set (float32 R, equal params, batch and
+            draws; the card held to the CPU's side of every ReLU, clip
+            bound, hard cut and k-means assignment: Kinks, Cuts), GFormer
+            over one group of 10 steps on the CPU's sampled graphs; BSPM's
+            scores card against CPU, and two card builds' bits (a JSON line)
+42. famprofile device time by kernel group and idle share over one step of
+            each trained model (GFormer's host resample timed apart) and
+            one BSPM evaluation chunk at the beauty-sized set, peak memory;
+            the seconds phases 39-42 and the five's determinism runs added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -338,8 +372,22 @@ P_SAMPLE_RTOL = 2.0 ** -6
 # Phase 34: every model twice on one seed, at the path's shapes, for equal
 # bits (the user-rows models one epoch, the others this many steps, then an
 # evaluation)
+# Phases 39-42: BSPM (training-free, TrainFreeTrainer), GFormer (GFormerTrainer,
+# through K2) and the in-batch contrastive models HCCF, LightGCL, VGCL and
+# GraphAug (the standard trainer), each at its Model_YAML file's first combo on
+# the beauty-sized set. BSPM and GFormer are not exported: by the JAX CLI's
+# rule their trainers keep no weights of their own.
+FAMILY_MODELS = ("BSPM", "GFormer", "HCCF", "LightGCL", "VGCL", "GraphAug")
+FAMILY_TRAINED = FAMILY_MODELS[1:]
+FAMILY_EPOCHS = 2
+FAMILY_UNEXPORTED = ("BSPM", "GFormer")
+GFORMER_TERMS = 3  # K2 terms a GFormer step (two self-contrasts, the cross term); k needs a gradient in each
+# BSPM's scores, card against CPU on phase 32's seeded set: within this share
+# of the largest score (each build's eigsh starts from the same vector, on
+# the Gram of its own device)
+BSPM_SCORE_TOL = 1e-4
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
-              "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS
+              "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED
 USER_ROW_MODELS = ("CF_Diff", "DiffRec")
 DET_STEPS = 20
 
@@ -616,17 +664,60 @@ def ptxas_entries(name: str, fragment: str):
     return out
 
 
+def lse_timings(phase: str, label: str, q, k, g, k_grad: bool, sms: int) -> dict:
+    """K2's forward, dq and (``k_grad``) dk kernels on q (B, E), k (N, E)
+    and g (B,), each timed back to back beside the plain version, the
+    library route (no single PyTorch call computes this: the product and
+    torch.logsumexp, two calls, and autograd through them) and its bound;
+    one line each. Returns {kernel: {kernel (the CUDA kernel that ran), ms,
+    plain_ms, library_ms, bound_ms, bound_by}}."""
+    from chaorec_tpu_torch.ops.streaming_lse import (forward_layout, streaming_logsumexp_reference,
+                                                     streaming_lse_dk, streaming_lse_dq,
+                                                     streaming_lse_fwd, takes_e64)
+
+    (b, e), n = q.shape, k.shape[0]
+    lse = streaming_lse_fwd(q, k)
+    kq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+    plain = streaming_logsumexp_reference(kq, kk)
+    lib = torch.logsumexp(torch.mm(kq, kk.T), dim=-1)
+    e64 = takes_e64(q, k)
+    fwd_kernel, splits, per = forward_layout(q, k, sms)
+    row = {}
+    for kernel, name, fn, plain_fn, lib_fn in (
+            ("fwd", fwd_kernel, lambda: streaming_lse_fwd(q, k),
+             lambda: streaming_logsumexp_reference(q, k),
+             lambda: torch.logsumexp(torch.mm(q, k.T), dim=-1)),
+            ("dq", "lse_bwd64_kernel<false>" if e64 else "lse_dq_kernel",
+             lambda: streaming_lse_dq(q, k, lse, g),
+             lambda: torch.autograd.grad(plain, (kq,), g, retain_graph=True),
+             lambda: torch.autograd.grad(lib, (kq,), g, retain_graph=True)),
+            ("dk", "lse_bwd64_kernel<true>" if e64 else "lse_dk_kernel",
+             lambda: streaming_lse_dk(q, k, lse, g),
+             lambda: torch.autograd.grad(plain, (kk,), g, retain_graph=True),
+             lambda: torch.autograd.grad(lib, (kk,), g, retain_graph=True))):
+        if kernel == "dk" and not k_grad:
+            continue  # not on the path: NCL's prototypes need no gradient
+        bms, by = lse_bound(b, n, e, kernel)
+        row[kernel] = dict(kernel=name, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain_fn, 10),
+                           library_ms=cuda_ms(lib_fn, 10), bound_ms=bms, bound_by=by)
+        grid = f", {splits} splits x {per} tiles" if kernel == "fwd" else ""
+        say(phase, f"streaming_lse_{kernel} {label} ({b}, {n}, {e}) by {name}{grid}: kernel "
+            f"{row[kernel]['ms']:.4f} ms, plain {row[kernel]['plain_ms']:.4f} ms, library "
+            f"(torch.logsumexp(q @ k.T){'' if kernel == 'fwd' else ' and its autograd'}, two "
+            f"calls) {row[kernel]['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{100 * bms / row[kernel]['ms']:.1f}% of it")
+    return row
+
+
 def lse_phase(gen, device) -> dict:
     """The streaming logsumexp kernels against the plain version and its
     autograd at every shape of LSE_SHAPES, then their times at SGL's two
     main shapes and NCL's prototypes (LSE_TIMED). Returns {"max_abs_err":
     {kernel: err}, side: {kernel: {kernel (the CUDA kernel that ran), ms,
     plain_ms, library_ms, bound_ms, bound_by}}}."""
-    from chaorec_tpu_torch.ops.streaming_lse import (FWD_BLOCKS_PER_SM, forward_layout,
-                                                     fwd64_blocks_per_sm, streaming_logsumexp,
-                                                     streaming_logsumexp_reference,
-                                                     streaming_lse_dk, streaming_lse_dq,
-                                                     streaming_lse_fwd, takes_e64)
+    from chaorec_tpu_torch.ops.streaming_lse import (FWD_BLOCKS_PER_SM, fwd64_blocks_per_sm,
+                                                     streaming_logsumexp,
+                                                     streaming_logsumexp_reference)
 
     errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
     for shape in LSE_SHAPES:
@@ -669,43 +760,9 @@ def lse_phase(gen, device) -> dict:
     results = {"max_abs_err": errs}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for side, shape in LSE_TIMED.items():
-        b, n, e, _, k_grad = shape
         q, k, g = lse_inputs(gen, shape, device)
-        q, k = q.detach(), k.detach()
-        lse = streaming_lse_fwd(q, k)
-        kq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
-        plain = streaming_logsumexp_reference(kq, kk)
-        # the library route: no single PyTorch call computes this; the
-        # product and torch.logsumexp, two calls, and autograd through them
-        lib = torch.logsumexp(torch.mm(kq, kk.T), dim=-1)
-        e64 = takes_e64(q, k)
-        fwd_kernel, splits, per = forward_layout(q, k, sms)
-        row = {}
-        for kernel, name, fn, plain_fn, lib_fn in (
-                ("fwd", fwd_kernel, lambda: streaming_lse_fwd(q, k),
-                 lambda: streaming_logsumexp_reference(q, k),
-                 lambda: torch.logsumexp(torch.mm(q, k.T), dim=-1)),
-                ("dq", "lse_bwd64_kernel<false>" if e64 else "lse_dq_kernel",
-                 lambda: streaming_lse_dq(q, k, lse, g),
-                 lambda: torch.autograd.grad(plain, (kq,), g, retain_graph=True),
-                 lambda: torch.autograd.grad(lib, (kq,), g, retain_graph=True)),
-                ("dk", "lse_bwd64_kernel<true>" if e64 else "lse_dk_kernel",
-                 lambda: streaming_lse_dk(q, k, lse, g),
-                 lambda: torch.autograd.grad(plain, (kk,), g, retain_graph=True),
-                 lambda: torch.autograd.grad(lib, (kk,), g, retain_graph=True))):
-            if kernel == "dk" and not k_grad:
-                continue  # not on the path: NCL's prototypes need no gradient
-            bms, by = lse_bound(b, n, e, kernel)
-            row[kernel] = dict(kernel=name, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain_fn, 10),
-                               library_ms=cuda_ms(lib_fn, 10), bound_ms=bms, bound_by=by)
-            grid = f", {splits} splits x {per} tiles" if kernel == "fwd" else ""
-            say("kernel", f"streaming_lse_{kernel} {side} ({b}, {n}, {e}) by {name}{grid}: kernel "
-                f"{row[kernel]['ms']:.4f} ms, plain {row[kernel]['plain_ms']:.4f} ms, library "
-                f"(torch.logsumexp(q @ k.T){'' if kernel == 'fwd' else ' and its autograd'}, two "
-                f"calls) {row[kernel]['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
-                f"{100 * bms / row[kernel]['ms']:.1f}% of it")
-        results[side] = row
-        del q, k, g, lse, kq, kk, plain, lib
+        results[side] = lse_timings("kernel", side, q.detach(), k.detach(), g, shape[4], sms)
+        del q, k, g
         torch.cuda.empty_cache()
     return results
 
@@ -864,17 +921,24 @@ def device_profile(phase: str, what: str, fn, out_path: str, groups=None) -> Non
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # device kernels only: an op's own row, or a range such as
-    # Optimizer.step's annotation on the device, would count its kernels twice
-    rows = sorted(((e.self_device_time_total, e.key, e.count) for e in events
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                   and not getattr(e, "is_user_annotation", False)),
-                  reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # device kernels only: an op's own row, or a range such as
+        # Optimizer.step's annotation on the device, would count its kernels twice
+        rows = sorted(((e.self_device_time_total, e.key, e.count) for e in events
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                       and not getattr(e, "is_user_annotation", False)),
+                      reverse=True)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        if busy_ms > 0:
+            break
+        # seen once in a long run: a profiled call whose trace held no kernel
+        say(phase, f"{what}: the profiler saw no device kernel (try {attempt} of 3; "
+            f"{len(events)} event kinds, {sum(e.device_type == DeviceType.CUDA for e in events)} "
+            "on the device)")
     check(busy_ms > 0, "the profiler saw no device kernel")
     say(phase, f"{what}: wall {wall_ms:.1f} ms unprofiled, device kernels {busy_ms:.1f} ms, "
         f"idle share {100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%")
@@ -2233,8 +2297,9 @@ def path_config(name: str, args):
     """(Config, dataset name) of ``name`` as this script's CLI runs train
     it: CF_Diff at MODEL_CONFIG on the baby-sized set, LightGCN at
     LIGHTGCN_CONFIG and the rest of its family at their Model_YAML file's
-    first combo on the beauty-sized set, and so the id-only models, every
-    other model at its first combo on the sports-sized set."""
+    first combo on the beauty-sized set, and so the id-only models and
+    phases 39-42's, every other model at its first combo on the
+    sports-sized set."""
     from chaorec_tpu_torch.config import Config
 
     if name == "CF_Diff":
@@ -2242,23 +2307,26 @@ def path_config(name: str, args):
                       **MODEL_CONFIG), DATASET
     if name == "LightGCN":
         return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
-    ds = LINEAR_DATASET if name in LINEAR_MODELS + IDONLY_MODELS else FREEDOM_DATASET
+    ds = (LINEAR_DATASET if name in LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
+          else FREEDOM_DATASET)
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
 
 def seeded_run(cfg, ds, device, steps=None):
-    """(losses, rank list, seconds) of a fresh Trainer on ``cfg``'s seed:
-    pre_epoch, then one whole epoch (``steps`` None) or its first
-    ``steps`` batches (completed by ``Trainer.bpr_batch``: negatives, and
-    MCLN's interest items), then ``evaluate``; all under the trainer's
-    deterministic mode."""
+    """(losses, rank list, seconds) of a fresh trainer (the model's
+    ``trainer_cls``, or ``Trainer``) on ``cfg``'s seed: pre_epoch, then one
+    whole epoch (``steps`` None) or its first ``steps`` batches (completed
+    by ``Trainer.bpr_batch``: negatives, and MCLN's interest items; GFormer
+    resamples its graphs every ``fix_steps`` of them, as its trainer does),
+    then ``evaluate``; all under the trainer's deterministic mode."""
     from chaorec_tpu_torch.data.sampling import make_edge_batches
     from chaorec_tpu_torch.models import build_model
     from chaorec_tpu_torch.train import loop
 
     t0 = time.perf_counter()
     model = build_model(cfg, ds, device)
-    trainer = loop.Trainer(model, ds, cfg)
+    family = getattr(model, "trainer_cls", loop.Trainer)(model, ds, cfg)
+    trainer = getattr(family, "_base", family)
     params = trainer.init_params()
     opt = trainer.make_optimizer(params)
     with loop.deterministic_mode():
@@ -2267,8 +2335,15 @@ def seeded_run(cfg, ds, device, steps=None):
             losses = [trainer.train_epoch(params, opt)]
         else:
             batches = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)
-            losses = [trainer.train_step(params, opt, trainer.bpr_batch(batch)).detach()
-                      for batch in batches[:steps]]
+            losses = []
+            for i, batch in enumerate(batches[:steps]):
+                if hasattr(family, "sample_graphs"):
+                    if i % model.fix_steps == 0:
+                        graphs = family.sample_graphs(params)
+                    loss = family.train_step(params, opt, trainer.bpr_batch(batch), graphs)
+                else:
+                    loss = trainer.train_step(params, opt, trainer.bpr_batch(batch))
+                losses.append(loss.detach())
             losses = torch.stack(losses).cpu().numpy()
         rank = trainer.evaluate(params)[2].cpu().numpy()
     torch.cuda.synchronize()
@@ -2296,6 +2371,473 @@ def determinism_phase(args, device, datasets) -> dict:
         out[name] = line
         torch.cuda.empty_cache()
     return out
+
+
+class Cuts:
+    """The side of each clip bound (``torch.clamp``), hard cut
+    (``models/graphaug.hard_cut``) and k-means assignment
+    (``ops/kmeans._assign``) a step takes, recorded on one step and held
+    to on another, as ``Kinks`` holds the ReLUs.
+
+    GraphAug's view weights jump from 0 to above 0.2 at the cut, VGCL's
+    contrast moves a row to another cluster when two centroids are within an
+    ulp of tying, and a clipped value's gradient vanishes at its bound: two
+    devices whose float32 roundings differ by an ulp can take the two sides.
+    ``record()`` notes each call's sides (-1 below the lower bound, 1 above
+    the upper, else 0; the cut's kept entries; the assignment);
+    ``replay()`` computes each call from the recorded sides, so that the
+    second step takes the first one's; ``flips`` counts the entries whose
+    own side differs from the recorded one."""
+
+    def __init__(self):
+        self.sides, self.flips, self._next = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, mode):
+        from chaorec_tpu_torch.models import graphaug
+        from chaorec_tpu_torch.ops import kmeans
+
+        clamp, cut, assign = torch.clamp, graphaug.hard_cut, kmeans._assign
+        self.flips, self._next = 0, 0
+        if mode == "record":
+            self.sides = []
+
+        def pinned(side, recompute, replayed):
+            side = side.detach()
+            if mode == "record":
+                self.sides.append(side)
+                return recompute()
+            rec = self.sides[self._next].to(side.device)
+            self._next += 1
+            self.flips += int((side != rec).sum())
+            return recompute() if mode == "compare" else replayed(rec)
+
+        def pinned_clamp(x, min=None, max=None):
+            side = torch.zeros(x.shape, dtype=torch.int8, device=x.device)
+            if min is not None:
+                side = torch.where(x < min, -1, side).to(torch.int8)
+            if max is not None:
+                side = torch.where(x > max, 1, side).to(torch.int8)
+            return pinned(side, lambda: clamp(x, min, max),
+                          lambda rec: torch.where(rec == -1, min if min is not None else x,
+                                                  torch.where(rec == 1, max if max is not None
+                                                              else x, x)))
+
+        torch.clamp = pinned_clamp
+        graphaug.hard_cut = lambda x, t: pinned(x > t, lambda: cut(x, t),
+                                                lambda rec: x * rec.to(x.dtype))
+        kmeans._assign = lambda x, c: pinned(assign(x, c), lambda: assign(x, c),
+                                             lambda rec: rec)
+        try:
+            yield self
+        finally:
+            torch.clamp, graphaug.hard_cut, kmeans._assign = clamp, cut, assign
+        check(mode == "record" or self._next == len(self.sides),
+              f"a step made {self._next} pinned calls, its record {len(self.sides)}")
+
+    def record(self):
+        return self._patched("record")
+
+    def replay(self):
+        return self._patched("replay")
+
+
+@contextlib.contextmanager
+def pinned_sides(*modes):
+    """Each of ``modes`` (a ``Kinks`` or ``Cuts`` mode) entered at once."""
+    with contextlib.ExitStack() as stack:
+        for m in modes:
+            stack.enter_context(m)
+        yield
+
+
+class TrainFreeTimer:
+    """While active, times each ``TrainFreeTrainer.run`` (BSPM's one
+    evaluation pass; the device synchronized at both ends)."""
+
+    def __enter__(self):
+        from chaorec_tpu_torch.models import bspm
+
+        self.cls, self.orig, self.seconds = bspm.TrainFreeTrainer, bspm.TrainFreeTrainer.run, []
+
+        def timed(trainer):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(trainer)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        self.cls.run = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.orig
+
+
+def family_cli_run(device, ds, name, cfg, grid) -> tuple:
+    """Phase 39's ``cli.run`` of one model on ``ds``: each epoch's loss,
+    walls, eval users per second and peak memory (BSPM: its spectral build
+    and its one evaluation pass); GFormer's K2 launches against
+    ``GFORMER_TERMS`` a step, none anywhere else; BSPM's and GFormer's
+    export skipped with the JAX CLI's warning and no file. Returns (the
+    model, K2's (fwd, dq, dk) launches)."""
+    from chaorec_tpu_torch import cli
+
+    probe = EpochProbe()
+    logging.getLogger().addFilter(probe)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with BuildProbe() as built, TrainFreeTimer() as evals:
+            best = cli.run(cfg, grid, ds, device)
+            torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeFilter(probe)
+    run_s = time.perf_counter() - t0
+    k2 = lse_counts()
+    others = other_counts(*kernel_wrappers()[3:6])
+    model = built.models[0]
+    check(len(built.models) == 1 and model.device.type == device.type,
+          f"{name} is not on the card")
+    combo = {k: grid[k][0] for k in grid["hyper_parameters"]}
+    n_batches = math.ceil(ds.num_edges / cfg.batch_size)
+    if name == "BSPM":
+        from chaorec_tpu_torch.models.bspm import TrainFreeTrainer
+
+        eval_s = evals.seconds[0]
+        again = TrainFreeTrainer(model, ds, cfg)._inner  # the same pass once more, warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        again.evaluate({})
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        say("family", f"BSPM: spectral build (C = R^T R on the card, eigsh of k = "
+            f"{model.b.shape[1]} on the host) {model.build_seconds:.3f} s; one evaluation pass "
+            f"{eval_s:.3f} s ({ds.num_user / eval_s:.0f} users/s, {model.k_s} Euler steps), "
+            f"again {warm_s:.3f} s ({ds.num_user / warm_s:.0f} users/s); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(len(evals.seconds) == 1 and not probe.epochs, "BSPM did not make one pass")
+        expected = (0, 0, 0)
+    else:
+        for e, ep in enumerate(probe.epochs):
+            say("family", f"{name} epoch {e + 1}: loss {ep['loss']:.5f}, wall {ep['wall_s']:.3f} s "
+                f"(training {ep['train_s']:.3f} s, eval {ep['eval_s']:.3f} s: "
+                f"{ds.num_user / ep['eval_s']:.0f} users/s), peak device memory "
+                f"{ep['peak_gib']:.2f} GiB")
+        check(len(probe.epochs) == cfg.num_epoch, f"{len(probe.epochs)} epochs logged")
+        check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
+        terms = GFORMER_TERMS if name == "GFormer" else 0
+        expected = (cfg.num_epoch * n_batches * terms,) * 3
+    say("family", f"{name} cli.run {combo}: {cfg.num_epoch if name != 'BSPM' else 0} epochs x "
+        f"{n_batches} batches of {cfg.batch_size} edges: {run_s:.3f} s wall; streaming_lse "
+        f"fwd/dq/dk launches {k2} (expected {expected}), other kernels {others} (expected "
+        f"none)")
+    check(k2 == expected and not any(others), f"{name} launched {k2} and {others}")
+    check(sorted(best) == [5, 10, 20] and all(
+        math.isfinite(v) for m in best.values() for v in m.values()), f"best {best}")
+    say("family", f"{name} best test metrics: " + "; ".join(
+        f"@{k} recall {m['recall']:.5f} ndcg {m['ndcg']:.5f}" for k, m in best.items()))
+    if name in FAMILY_UNEXPORTED:
+        log = open(os.path.join(cfg.log_dir, f"{name}_{cfg.data_path}.log")).read()
+        skipped = "export_artifact: best combo's trainer kept no weights - skipping export"
+        check(skipped in log and not os.path.exists(cfg.export_artifact),
+              f"{name}: the export was not skipped")
+        say("family", f"{name} --export_artifact: skipped with the JAX CLI's warning, no file "
+            "(its trainer keeps no weights of its own)")
+    return model, k2
+
+
+def gformer_lse_phase(gen, device, ds) -> dict:
+    """K2 at GFormer's three shapes on ``ds`` (the user and the item
+    self-contrast, whose q are rows of k's own table, and the users against
+    the item table): the forward, and the gradients of the tables through
+    autograd (dq and dk summed into one table where q and k share it),
+    against the plain version under the gates of phase 3; then each
+    kernel's time beside the plain version's, the library route's and its
+    bound. Returns {"max_abs_err": {kernel: err}, side: {kernel: timing}}."""
+    from chaorec_tpu_torch.ops.losses import catalog_logsumexp
+    from chaorec_tpu_torch.ops.streaming_lse import streaming_logsumexp_reference
+
+    b, e = 1024, 64
+    sides = {"user": (ds.num_user, "self"), "item": (ds.num_item, "self"),
+             "cross": (ds.num_item, "cross")}
+    errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
+    results = {"max_abs_err": errs}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for side, (n, kind) in sides.items():
+        # rows of N(0, 1/8) entries: logits of about unit spread, a row
+        # against itself about 8, as a trained table's
+        table = (torch.randn(n, e, generator=gen, device=device) / math.sqrt(8)).requires_grad_()
+        users = (torch.randn(ds.num_user, e, generator=gen, device=device)
+                 / math.sqrt(8)).requires_grad_()
+        rows = torch.randint(0, n if kind == "self" else ds.num_user, (b,), generator=gen,
+                             device=device)
+        g = torch.randn(b, generator=gen, device=device)
+        leaves = (table,) if kind == "self" else (users, table)
+
+        def run(fn):
+            q = table[rows] if kind == "self" else users[rows]
+            out = fn(q, table)
+            return out, torch.autograd.grad(out, leaves, g)
+
+        before = lse_counts()
+        got, grads = run(catalog_logsumexp)
+        torch.cuda.synchronize()
+        launched = tuple(a - c for a, c in zip(lse_counts(), before))
+        want, wgrads = run(streaming_logsumexp_reference)
+        share = tol_share(got, want, **LSE_TOL)
+        errs["fwd"] = max(errs["fwd"], (got - want).abs().max().item())
+        rels = []
+        for name, a, w in zip(("dq", "dk") if kind == "cross" else ("dq+dk",), grads, wgrads):
+            err = (a - w).abs().max().item()
+            for k in ("dq", "dk"):
+                if k in name:
+                    errs[k] = max(errs[k], err)
+            rels.append((name, err / w.abs().max().item()))
+        say("k2gf", f"catalog_logsumexp {side} ({b}, {n}, {e}), q {'rows of k' if kind == 'self' else 'user rows, k the item table'}: launches fwd/dq/dk "
+            f"{launched}; fwd max abs err {(got - want).abs().max().item():.3e} ({share:.3f} of "
+            f"rtol/atol 1e-5); " + ", ".join(f"{nm} max abs err / max |plain| {r:.2e}"
+                                             for nm, r in rels)
+            + f" (bound {LSE_BWD_REL_TOL:g})")
+        check(launched == (1, 1, 1) and share <= 1.0
+              and max(r for _, r in rels) <= LSE_BWD_REL_TOL, f"K2 at GFormer's {side} disagrees")
+
+        # times, kernel by kernel, on these inputs
+        q = (table[rows] if kind == "self" else users[rows]).detach()
+        results[side] = lse_timings("k2gf", f"gformer {side}", q, table.detach(), g, True, sms)
+        del table, users, q, got, grads, want, wgrads
+        torch.cuda.empty_cache()
+    return results
+
+
+def family_phases(args, device, ds) -> tuple:
+    """Phases 39-42: the six models' CLI runs on beauty (BSPM one pass,
+    the others FAMILY_EPOCHS epochs; GFormer through K2), K2 at GFormer's
+    shapes, one step of each trained model on the card against the CPU and
+    BSPM's scores likewise, BSPM's bits over two builds, and each one's
+    step profile. Returns (their wall seconds, GFormer's K2 launches, K2's
+    results at its shapes)."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches
+    from chaorec_tpu_torch.eval.ranking import rank_from_scores
+    from chaorec_tpu_torch.models import bspm, build_model
+    from chaorec_tpu_torch.models.gformer import graphs_from_arrays
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train.loop import Trainer, deterministic_mode
+
+    t_start = time.perf_counter()
+    # 39. family: cli.run of each at its first combo ----------------------
+    gformer_launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in FAMILY_MODELS:
+            cfg, _ = path_config(name, args)
+            art = os.path.join(tmp, f"{name}.npz") if name in FAMILY_UNEXPORTED else ""
+            model, k2 = family_cli_run(device, ds, name, cfg.replace(
+                num_epoch=FAMILY_EPOCHS, log_dir=args.out_dir, export_artifact=art),
+                first_combo(name)[1])
+            if name == "GFormer":
+                gformer_launches = k2
+                n_batches = math.ceil(ds.num_edges / cfg.batch_size)
+                say("family", f"GFormer: K2 launches an epoch {n_batches * GFORMER_TERMS} of "
+                    f"each kernel ({n_batches} steps x {GFORMER_TERMS} terms), host resamples an "
+                    f"epoch {math.ceil(n_batches / model.fix_steps)}")
+            del model
+            torch.cuda.empty_cache()
+
+    # 40. k2gf: K2 at GFormer's three shapes, held and timed ---------------
+    lse = gformer_lse_phase(torch.Generator(device=device).manual_seed(args.seed + 40),
+                            device, ds)
+
+    # 41. famstep: one step of each on the card against the CPU's ----------
+    # on phase 32's seeded 2048 x 1024 set, float32 R, equal params, batch
+    # and draws, the card held to the CPU's side of each kink (Kinks, Cuts)
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE)
+    for name in FAMILY_TRAINED:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+        if name == "LightGCL":  # each device's generator draws its own SVD sketch
+            for f in ("u_mul_s", "v_mul_s", "ut", "vt"):
+                setattr(card_model, f, getattr(cpu_model, f).to(device))
+        family = getattr(cpu_model, "trainer_cls", Trainer)(cpu_model, sds, cfg)
+        trainer = getattr(family, "_base", family)
+        params = trainer.init_params()
+        if name != "GFormer":
+            batch = first_batch(trainer, cfg)
+            draws = (cpu_model.draws(trainer.generator, batch)
+                     if hasattr(cpu_model, "draws") else None)
+            kinks, cuts = Kinks(), Cuts()
+            c_loss, c_grads, _ = device_step(cpu_model, params, None, batch, draws,
+                                             pinned_sides(kinks.record(), cuts.record()))
+            reset_counts()
+            g_loss, g_grads, _ = device_step(card_model, params, None, batch, draws,
+                                             pinned_sides(kinks.replay(), cuts.replay()))
+            worst, loss_rel, others = worst_share(g_grads, c_grads), abs(g_loss - c_loss) / abs(
+                c_loss), other_counts()
+            given = {"HCCF": "", "LightGCL": ", SVD factors", "VGCL": ", noise, k-means initial rows",
+                     "GraphAug": ", dropout masks, gate and RelaxedBernoulli uniforms, random "
+                                 "edges"}[name]
+            say("famstep", f"one {name} step of {batch.users.shape[0]} edges on a float32 R "
+                f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}), card vs CPU on the same "
+                f"params, batch, negatives{given}: loss {g_loss:.7f} vs {c_loss:.7f} (rel "
+                f"{loss_rel:.2e}, bound {STEP_LOSS_RTOL:g}); worst gradient {worst[1]} at "
+                f"{worst[0]:.3f} of its bound; ReLU units on the other side {kinks.flips}, "
+                f"clip, cut and k-means entries {cuts.flips}; kernel launches {others}")
+            check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0 and not any(others),
+                  f"{name} card step disagrees")
+        else:
+            # one group: the CPU's sampled graphs on both devices, each step
+            # from the CPU trajectory's params, after which the CPU steps on
+            opt = trainer.make_optimizer(params)
+            arrays = family.sample_arrays(params)
+            n = cpu_model.num_nodes
+            graphs = {"cpu": graphs_from_arrays(arrays, n, "cpu"),
+                      "card": graphs_from_arrays(arrays, n, device)}
+            from chaorec_tpu_torch.models.gformer import EdgeList
+
+            cand = EdgeList.build(cpu_model.base_rows_np, cpu_model.base_cols_np, n, "cpu",
+                                  trained=False)
+            card_cand = EdgeList.build(cpu_model.base_rows_np, cpu_model.base_cols_np, n, device,
+                                       trained=False)
+            c_att = cpu_model.sampler_att(params, cand)
+            g_att = card_model.sampler_att(clone_to(params, device), card_cand).cpu()
+            att_err = ((g_att - c_att).abs().max() / c_att.abs().max()).item()
+            check(att_err <= STEP_RTOL, f"GFormer's sampler attention: {att_err:.2e}")
+            batches = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)
+            worst_all, loss_all, flips, launched = (0.0, ""), 0.0, 0, (0, 0, 0)
+            for batch in batches[:cpu_model.fix_steps]:
+                batch = trainer.bpr_batch(batch)
+                out = []
+                cuts = Cuts()
+                for model, on, mode in ((cpu_model, "cpu", cuts.record),
+                                        (card_model, device, cuts.replay)):
+                    leaves = {k: v.detach().to(on, copy=True).requires_grad_()
+                              for k, v in params.items()}
+                    before = lse_counts()
+                    with deterministic_mode(), mode():
+                        loss = model.loss_graphs(leaves, batch_to(batch, on),
+                                                 graphs["cpu" if on == "cpu" else "card"])
+                        loss.backward()
+                    if on != "cpu":
+                        launched = tuple(a + c - d for a, c, d in
+                                         zip(launched, lse_counts(), before))
+                    out.append((loss.item(), {k: (torch.zeros_like(v) if v.grad is None
+                                                  else v.grad).cpu() for k, v in leaves.items()}))
+                (c_loss, c_grads), (g_loss, g_grads) = out
+                w = worst_share(g_grads, c_grads)
+                worst_all = max(worst_all, w)
+                loss_all = max(loss_all, abs(g_loss - c_loss) / abs(c_loss))
+                flips += cuts.flips
+                with deterministic_mode():
+                    family.train_step(params, opt, batch, graphs["cpu"])
+            steps = min(cpu_model.fix_steps, len(batches))
+            say("famstep", f"GFormer, one group of {steps} steps of {cfg.batch_size} edges "
+                f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}) on the CPU's sampled "
+                f"graphs (the card's sampler attention within {att_err:.2e} of the CPU's), each "
+                f"step card vs CPU from the CPU's params: worst loss rel {loss_all:.2e} (bound "
+                f"{STEP_LOSS_RTOL:g}); worst gradient {worst_all[1]} at {worst_all[0]:.3f} of its "
+                f"bound; clipped entries on the other side {flips}; the card's K2 launches "
+                f"fwd/dq/dk {launched} (expected {(steps * GFORMER_TERMS,) * 3})")
+            check(loss_all <= STEP_LOSS_RTOL and worst_all[0] <= 1.0
+                  and launched == (steps * GFORMER_TERMS,) * 3, "GFormer card steps disagree")
+        del cpu_model, card_model, trainer, family
+    torch.cuda.empty_cache()
+    # BSPM's scores, card against CPU, and two card builds' bits -----------
+    # (phase 39's beauty-sized factors kept aside for phase 42's profile)
+    cfg, _ = path_config("BSPM", args)
+    kept, out = dict(bspm._SPECTRAL_CACHE), {}
+    for label, on in (("cpu", torch.device("cpu")), ("card", device), ("card", device)):
+        bspm._SPECTRAL_CACHE.clear()
+        model = build_model(cfg, sds, on)
+        ids = torch.arange(sds.num_user, device=on)
+        with deterministic_mode():
+            scores = model.score_users({}, ids)
+            ranks = rank_from_scores(model, {}, torch.from_numpy(sds.history.values).to(on))
+        out.setdefault(label, []).append((model.b.cpu(), scores.cpu(), ranks.cpu(),
+                                            model.build_seconds))
+    bspm._SPECTRAL_CACHE.clear()
+    bspm._SPECTRAL_CACHE.update(kept)
+    (_, c_scores, _, c_s), = out["cpu"]
+    (b1, s1, r1, g_s1), (b2, s2, r2, g_s2) = out["card"]
+    rel = ((s1 - c_scores).abs().max() / c_scores.abs().max()).item()
+    say("famstep", f"BSPM scores of all {sds.num_user} users ({sds.num_item} items, q "
+        f"{b1.shape[1]}), card vs CPU: max abs diff {rel:.2e} of the largest score (bound "
+        f"{BSPM_SCORE_TOL:g}); builds: CPU {c_s:.3f} s, card {g_s1:.3f} s and {g_s2:.3f} s")
+    check(rel <= BSPM_SCORE_TOL, "BSPM's card scores disagree with the CPU's")
+    line = {"determinism": "BSPM", "steps": "two builds from an empty spectral cache, "
+            f"{sds.num_user} x {sds.num_item}", "equal_loss_bits": bool(torch.equal(b1, b2)
+                                                                       and torch.equal(s1, s2)),
+            "equal_rank_lists": bool(torch.equal(r1, r2)),
+            "finite": bool(torch.isfinite(s1).all()), "seconds": [round(g_s1, 3), round(g_s2, 3)]}
+    print(json.dumps(line), flush=True)
+    check(line["equal_loss_bits"] and line["equal_rank_lists"] and line["finite"],
+          f"BSPM: two builds on one seed differ: {line}")
+
+    # 42. famprofile: one step of each at beauty under the profiler ----------
+    groups = {"K2 (lse_)": ("lse_",),
+              "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "index kernels (gathers, their scatters, index_add_, sorts)": (
+                  "index", "gather", "scatter", "sort", "radix"),
+              "embedding_bag (fixed-order segment sums)": ("embedding_bag", "embeddingbag"),
+              "reductions (norms, sums, softmax, logsumexp)": ("reduce_kernel", "softmax",
+                                                               "logsumexp"),
+              "elementwise": ("elementwise",)}
+    for name in FAMILY_MODELS:
+        cfg, _ = path_config(name, args)
+        model = build_model(cfg, ds, device)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        if name == "BSPM":
+            chunk = torch.arange(min(cfg.eval_user_chunk, ds.num_user), device=device)
+            what = (f"one BSPM evaluation chunk of {chunk.shape[0]} users (the ideal "
+                    f"filter, blur, {model.k_s} Euler steps: {2 + model.k_s} products with the "
+                    f"{ds.num_item}^2 Gram or the factors)")
+
+            def fn():
+                with deterministic_mode():
+                    model.score_users({}, chunk)
+        else:
+            family = getattr(model, "trainer_cls", Trainer)(model, ds, cfg)
+            trainer = getattr(family, "_base", family)
+            params = trainer.init_params()
+            opt = trainer.make_optimizer(params)
+            batch = first_batch(trainer, cfg)
+            what = f"one {name} training step of {cfg.batch_size} edges (forward, backward, Adam)"
+            if name == "GFormer":
+                t0 = time.perf_counter()
+                with deterministic_mode():
+                    graphs = family.sample_graphs(params)
+                torch.cuda.synchronize()
+                say("famprofile", f"GFormer: one host resample (candidate edges, the card's "
+                    f"attention, the masks, the bags of the four graphs) "
+                    f"{time.perf_counter() - t0:.3f} s; edges: encoder "
+                    f"{graphs.enc.rows.shape[0]}, decoder {graphs.dec.rows.shape[0]}, sub "
+                    f"{graphs.sub.rows.shape[0]}, cmp {graphs.cmp.rows.shape[0]}")
+                what += ", clip"
+
+                def fn():
+                    with deterministic_mode():
+                        family.train_step(params, opt, batch, graphs)
+            else:
+                def fn():
+                    trainer.train_step(params, opt, batch)
+        reset_counts()
+        device_profile("famprofile", f"{what} at {LINEAR_DATASET}", fn,
+                       os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+                       groups=groups)
+        k2, others = lse_counts(), other_counts(*kernel_wrappers()[3:6])
+        say("famprofile", f"{name} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K2 launches {k2}, other "
+            f"kernels {others}")
+        # device_profile calls the step three times: warm-up, timed, profiled
+        expected = (3 * GFORMER_TERMS if name == "GFormer" else 0,) * 3
+        check(not any(others) and k2 == expected,
+              f"{name} profile launched {k2} (expected {expected}) and {others}")
+        del model
+        torch.cuda.empty_cache()
+    bspm._SPECTRAL_CACHE.clear()
+    return time.perf_counter() - t_start, gformer_launches, lse
 
 
 def main(argv=None) -> int:
@@ -2672,6 +3214,11 @@ def main(argv=None) -> int:
     say("idprofile", f"the id-only models' share of the run: phases 35-38 {idonly_s:.1f} s, "
         f"their {len(IDONLY_MODELS)} models' determinism runs {idonly_det_s:.1f} s; "
         f"{idonly_s + idonly_det_s:.1f} s in all")
+    family_s, gformer_launches, gformer_lse = family_phases(args, device, bds)
+    family_det_s = sum(sum(det[n]["seconds"]) for n in FAMILY_TRAINED)
+    say("famprofile", f"phases 39-42's share of the run: {family_s:.1f} s, their "
+        f"{len(FAMILY_TRAINED)} trained models' determinism runs {family_det_s:.1f} s; "
+        f"{family_s + family_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
@@ -2730,6 +3277,19 @@ def main(argv=None) -> int:
                          + "; one launch is the kernel and its combine pass; library: no single "
                          "PyTorch call computes this: torch.mm and torch.logsumexp"
                          f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together")})
+    for side, (b, n) in (("user", (1024, bds.num_user)), ("item", (1024, bds.num_item)),
+                         ("cross", (1024, bds.num_item))):
+        for i, (kernel, line) in enumerate((("fwd", 44), ("dq", 95), ("dk", 116))):
+            entries.append({
+                "name": f"streaming_lse_{kernel}@gformer[{side}]", "route": "cuda",
+                "source": "chaorec_tpu_torch/csrc/streaming_lse.cu",
+                "replaces": f"chaorec_tpu/ops/pallas_lse.py:{line}", "shape": [b, n, 64],
+                "temperature": 1.0, "launches": gformer_launches[i],
+                "max_abs_err": gformer_lse["max_abs_err"][kernel], **gformer_lse[side][kernel],
+                "note": "launches: the GFormer CLI run's, all its three terms; user and item: "
+                        "q rows of k's own table (dq and dk reach one table), cross: user rows "
+                        "against the item table; library: torch.mm and torch.logsumexp"
+                        f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
     seg_names = {"dgcf": "DGCF", "dccf": "DCCF", "mgat_v": "MGAT", "mgat_t": "MGAT",
                  "mgat": "MGAT"}
     for name, (m, d) in scan_shapes(fds).items():
