@@ -15,6 +15,8 @@ from chaorec_tpu_torch.config import Config
 from chaorec_tpu_torch.data.loading import RecDataset, dense_interactions
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph, build_norm_adj
 from chaorec_tpu_torch.models import register_model
+from chaorec_tpu_torch.models.adagcl import AdaGCL
+from chaorec_tpu_torch.models.bm3 import BM3
 from chaorec_tpu_torch.models.bpr import BPRMF
 from chaorec_tpu_torch.models.bspm import BSPM
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
@@ -26,6 +28,7 @@ from chaorec_tpu_torch.models.dualvae import DualVAE
 from chaorec_tpu_torch.models.fkan_gcf import FKAN_GCF
 from chaorec_tpu_torch.models.freedom import FREEDOM
 from chaorec_tpu_torch.models.gformer import GFormer
+from chaorec_tpu_torch.models.grade import Grade
 from chaorec_tpu_torch.models.graphaug import GraphAug
 from chaorec_tpu_torch.models.hccf import HCCF
 from chaorec_tpu_torch.models.layergcn import LayerGCN
@@ -35,12 +38,15 @@ from chaorec_tpu_torch.models.lightgode import LightGODE
 from chaorec_tpu_torch.models.macridvae import MacridVAE
 from chaorec_tpu_torch.models.mcln import MCLN
 from chaorec_tpu_torch.models.mgat import MGAT
+from chaorec_tpu_torch.models.mgcl import MGCL
 from chaorec_tpu_torch.models.multvae import MultVAE
 from chaorec_tpu_torch.models.ncl import NCL
 from chaorec_tpu_torch.models.ngcf import NGCF
 from chaorec_tpu_torch.models.selfcf import SelfCF
 from chaorec_tpu_torch.models.sgl import SGL
 from chaorec_tpu_torch.models.simgcl import SimGCL
+from chaorec_tpu_torch.models.slmrec import SLMRec
+from chaorec_tpu_torch.models.vbpr import VBPR
 from chaorec_tpu_torch.models.vgcl import VGCL
 from chaorec_tpu_torch.models.xsimgcl import XSimGCL
 from chaorec_tpu_torch.ops.linear_prop import (CombinedLinearOp, build_weighted_op,
@@ -324,3 +330,56 @@ def _graphaug(cfg: Config, ds: RecDataset, device: torch.device) -> GraphAug:
     #   device): ssl_alpha is the contrast's weight
     return GraphAug(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
                     cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)
+
+
+@register_model("AdaGCL")
+def _adagcl(cfg: Config, ds: RecDataset, device: torch.device) -> AdaGCL:
+    # main.py:327-328: AdaGCL(..., dim_E, reg_weight, n_layers, ssl_temp, ssl_alpha, device);
+    # the frozen embedding copy is drawn from seed + 41, as the JAX builder's
+    # PRNGKey(seed + 41)
+    return AdaGCL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), cfg.dim_E,
+                  cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha, cfg.seed)
+
+
+@register_model("Grade")
+def _grade(cfg: Config, ds: RecDataset, device: torch.device) -> Grade:
+    # main.py:365-367: Grade(..., dim_E, reg_weight, n_layers, ssl_temp, ssl_alpha,
+    #   ssl_temp2, noise_alpha, device)
+    v, t = _feats(ds, device)
+    return Grade(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                 cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha, cfg.ssl_temp2,
+                 cfg.noise_alpha)
+
+
+@register_model("VBPR")
+def _vbpr(cfg: Config, ds: RecDataset, device: torch.device) -> VBPR:
+    # main.py:265-266: VBPR(num_user, num_item, dict, v_feat, dim_E, feature_embedding,
+    #   reg_weight, device)
+    v, _ = _feats(ds, device)
+    return VBPR(ds.num_user, ds.num_item, v, cfg.dim_E, cfg.feature_embed, cfg.reg_weight)
+
+
+@register_model("BM3")
+def _bm3(cfg: Config, ds: RecDataset, device: torch.device) -> BM3:
+    # main.py:282-283: BM3(..., dim_E, feature_embedding, reg_weight, dropout, n_layers,
+    #   cl_weight, aggr_mode, device)
+    v, t = _feats(ds, device)
+    return BM3(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+               cfg.feature_embed, cfg.reg_weight, cfg.dropout, cfg.n_layers, cfg.cl_weight)
+
+
+@register_model("SLMRec")
+def _slmrec(cfg: Config, ds: RecDataset, device: torch.device) -> SLMRec:
+    # main.py:290-291: SLMRec(..., dim_E, n_layers, ssl_temp, ssl_alpha, device)
+    v, t = _feats(ds, device)
+    return SLMRec(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                  cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)
+
+
+@register_model("MGCL")
+def _mgcl(cfg: Config, ds: RecDataset, device: torch.device) -> MGCL:
+    # main.py:314-315: MGCL(..., dim_E, reg_weight, n_layers, aggr_mode, ssl_temp,
+    #   ssl_alpha, device)
+    v, t = _feats(ds, device)
+    return MGCL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)

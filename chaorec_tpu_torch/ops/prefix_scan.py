@@ -17,6 +17,11 @@ tensor's device picks the path:
 
 ``prefix_cumsum.launches`` counts kernel launches (one per call: a memset of
 the call's scratch, then the kernel); CPU calls count nothing.
+
+``kernel_order`` is the kernel's fp32 summation order written in numpy, bit
+for bit the kernel's (tests/test_torch_prefix_scan.py holds the card to it):
+``prefix_cumsum_kernel_order`` runs it on a host tensor, so that a CPU step
+can share every prefix rounding with a card step (chip_smoke.py phase 46).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from chaorec_tpu_torch import kernels
@@ -87,6 +93,47 @@ def tile_layout(m: int, d: int, vec: bool, tile_rows: Optional[int] = None) -> T
     tiles = row_tiles * col_tiles
     return TileLayout(vec, units, col_tiles, tile_units, groups, tile_rows,
                       -(-tile_rows // groups), row_tiles, tiles, 2 * row_tiles * d + 1)
+
+
+def kernel_order(x: np.ndarray, lay: TileLayout) -> np.ndarray:
+    """csrc/prefix_scan.cu's fp32 summation order, in numpy: each group's
+    run scanned in order, the run totals scanned over the groups
+    (Hillis-Steele), the carry as the serial running total of the tiles'
+    aggregates, out = (carry + the groups before) + the run's prefix. The
+    columns are independent, so column tiles do not change it."""
+    m, d = x.shape
+    g, run, rows, tiles = lay.groups, lay.run_rows, lay.tile_rows, lay.row_tiles
+    r = np.arange(m)
+    blocks = np.zeros((tiles, g, run, d), np.float32)
+    blocks[r // rows, r % rows // run, r % rows % run] = x
+    incl = np.cumsum(blocks, axis=2, dtype=np.float32)
+    part = incl[:, :, -1].copy()
+    off = 1
+    while off < g:
+        part[:, off:] = part[:, off:] + part[:, :-off]
+        off *= 2
+    before = np.concatenate([np.zeros_like(part[:, :1]), part[:, :-1]], axis=1)
+    carry = np.zeros((tiles, d), np.float32)
+    total = part[0, -1]
+    for i in range(1, tiles):
+        carry[i] = np.float32(0) + total
+        total = carry[i] + part[i, -1]
+    out = (carry[:, None, :] + before)[:, :, None, :] + incl
+    return out.reshape(tiles, g * run, d)[:, :rows].reshape(-1, d)[:m]
+
+
+def prefix_cumsum_kernel_order(v: torch.Tensor, out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """``prefix_cumsum`` of v in the kernel's summation order, taken on the
+    host (``kernel_order`` at the layout the kernel takes for a contiguous,
+    aligned v of v's shape), on v's device; written into ``out`` when it is
+    given."""
+    m = v.shape[0]
+    x = v.detach().float().cpu().reshape(m, -1).numpy()
+    d = x.shape[1]
+    got = torch.from_numpy(kernel_order(x, tile_layout(m, d, d % VEC == 0)))
+    got = got.reshape(v.shape).to(v.device)
+    return got if out is None else out.copy_(got)
 
 
 def vector_path(v: torch.Tensor, out: torch.Tensor) -> bool:

@@ -117,6 +117,18 @@ def deterministic_mode():
         torch.utils.deterministic.fill_uninitialized_memory = was_fill
 
 
+def grads_into(loss: torch.Tensor, params) -> None:
+    """``loss``'s gradient into each of ``params``' ``.grad`` (replacing it),
+    zeros where the loss does not reach the param. optax steps every leaf
+    every time and Adam moves a leaf with a zero gradient by its momentum;
+    torch's Adam skips a param whose ``.grad`` is None. A family trainer
+    whose optimizers share params across losses (AdaGCL's, Grade's) fills
+    every gradient so before each step."""
+    params = list(params)
+    for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
+        p.grad = torch.zeros_like(p) if g is None else g
+
+
 class EarlyStopping:
     """Parity with the reference's ``utils.EarlyStopping``."""
 

@@ -55,7 +55,20 @@ published width with random weights from ``--seed``:
   kernels), neither exported (their trainers keep no weights, as in the
   JAX package); HCCF (3 layers), LightGCL (2 layers, a rank-5 SVD), VGCL (4
   layers, k-means of 50 clusters a step) and GraphAug (3 layers, a MixHop
-  view learner, 100000 random edges a view) on the standard trainer.
+  view learner, 100000 random edges a view) on the standard trainer;
+- AdaGCL (dim 64, 1 layer, reg 0.1, ssl_alpha 0.1, ssl_temp 0.1: a VGAE
+  generator and a hard-concrete denoising generator, three losses and three
+  Adams a batch) and Grade (dim 64, 5 layers, three VGAE generators over
+  an id, a visual and a textual tower, three losses and four Adams a
+  batch), each at its Model_YAML file's first combo on the same
+  beauty-sized set through its own trainer, whose stacks over the doubled
+  edge list run the prefix-sum kernel forward and backward; neither
+  exported (their trainers keep no weights, as in the JAX package); and
+  four multimodal towers on the standard trainer, each at its first combo:
+  SLMRec (1 layer on the halved operator, the FAC tasks), VBPR (its raw
+  4096-wide visual table trained), BM3 (2 layers, dropout targets) and
+  MGCL (2 layers, a user table a modality), MGCL's embeddings exported and
+  served. No kernel lies on the four towers' path.
 
 Phases, each printing its own lines:
 
@@ -175,7 +188,7 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the 27 trained models twice from a fresh trainer on one
+34. determinism  each of the 33 trained models twice from a fresh trainer on one
             seed at the path's shapes (CF_Diff and DiffRec one epoch, the
             others 20 steps), then an evaluation: equal loss bits and equal
             rank lists, one JSON line per model with both runs' seconds;
@@ -221,6 +234,38 @@ Phases, each printing its own lines:
             each trained model (GFormer's host resample timed apart) and
             one BSPM evaluation chunk at the beauty-sized set, peak memory;
             the seconds phases 39-42 and the five's determinism runs added
+43. family2 AdaGCL and Grade cli.run at their first combo on the
+            beauty-sized set through their own trainers, 2 epochs each:
+            loss, training wall (and a step's), eval wall, eval users per
+            second, peak memory; K4's launches against the count read off
+            the code (scan_launches: 18 L - 3 a step for AdaGCL, 18 L for
+            Grade, L an evaluation), no other kernel;
+            --export_artifact skipped with the JAX CLI's warning
+44. k4ag    K4 at their shape, (2E, dim_E) over the doubled edges, against
+            prefix_cumsum_reference and a float64 prefix under phase 20's
+            gate, the same bits twice; its time beside the plain version's,
+            torch.cumsum's and the bound
+45. towers  SLMRec, VBPR, BM3 and MGCL cli.run at their first combo, 2
+            epochs each (no kernel launch expected); MGCL's exported
+            embeddings served over HTTP
+46. fam2step one step of each of the four on the card against the CPU on
+            phase 32's seeded set with features (float32 R, equal params,
+            batch and draws, Kinks and Cuts); AdaGCL and Grade over two
+            batches (Grade on the CPU's kNN graph: the card's own top-k may
+            pick another neighbour where two nearly tie; the items counted),
+            each optimizer step of the card's from the CPU's params
+            and state, the CPU's prefixes in K4's own summation order: the
+            losses and each optimizer step's gradient (the larger of the
+            step bounds and 4 x the CPU step's spread from inputs nudged by
+            2^-24), how far K4's order moves them from prefixes rounded
+            once (printed), the
+            card's Adam steps against float64 Adam on its own gradient (the
+            entries Adam's normalization leaves apart from the CPU's
+            counted), the optimizer order and counts, K4 a batch
+47. fam2profile device time by kernel group (K4 among them) and idle share
+            over one step of each of the six at the beauty-sized set, peak
+            memory; the seconds phases 43-47 and the six's determinism runs
+            added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -386,8 +431,21 @@ GFORMER_TERMS = 3  # K2 terms a GFormer step (two self-contrasts, the cross term
 # of the largest score (each build's eigsh starts from the same vector, on
 # the Gram of its own device)
 BSPM_SCORE_TOL = 1e-4
+# phases 43-47: AdaGCL's and Grade's multi-optimizer trainers, whose stacks
+# run K4 over the doubled edge list, and four multimodal towers on the
+# plain BPR branch (no kernel), all on the beauty-sized set with features
+FAMILY2_MODELS = ("AdaGCL", "Grade")
+FAMILY2_EPOCHS = 2
+FAMILY2_STEP_BATCHES = 2  # phase 46 holds the card to the CPU over this many batches
+TOWER_MODELS = ("SLMRec", "VBPR", "BM3", "MGCL")
+TOWER_EPOCHS = 2
+TOWER_SERVED = "MGCL"  # exported and served: its embeddings are a plain forward
+# phase 46: a card optimizer step's params and moments against the float64
+# Adam step of the CPU's state with the card's own gradient (rounding only)
+ADAM_STEP_RTOL = 1e-5
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
-              "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED
+              "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED + (
+              FAMILY2_MODELS + TOWER_MODELS)
 USER_ROW_MODELS = ("CF_Diff", "DiffRec")
 DET_STEPS = 20
 
@@ -1453,6 +1511,57 @@ def scan_shapes(fds) -> dict:
             "mgat": (2 * e, 64)}
 
 
+def k4_hold(phase: str, gen, device, shape, dtype=torch.float32, runs: int = 2) -> float:
+    """K4 at ``shape`` against prefix_cumsum_reference and a float64 prefix
+    under the gate (4 ulp of the largest prefix x ceil(log2 M); + ulp x
+    sqrt(M) against the sequential plain version), the same bits in
+    ``runs`` runs, one launch each. Returns the max abs error against the
+    plain version."""
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum, prefix_cumsum_reference
+
+    m = shape[0]
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    before = prefix_cumsum.launches
+    got = prefix_cumsum(x)
+    same = all(torch.equal(got, prefix_cumsum(x)) for _ in range(runs - 1))
+    torch.cuda.synchronize()
+    check(prefix_cumsum.launches == before + runs, f"prefix_cumsum {shape} did not launch")
+    exact = torch.cumsum(x.double(), 0)
+    plain = prefix_cumsum_reference(x)
+    atol, plain_atol = scan_atol(exact, m), scan_atol(exact, m, sequential=True)
+    err = (got.double() - exact).abs().max().item()
+    err_plain = (got - plain).abs().max().item()
+    plain_exact = (plain.double() - exact).abs().max().item()
+    say(phase, f"prefix_cumsum {shape} {str(dtype)[6:]}: max abs err vs float64 {err:.3e} "
+        f"(bound {atol:.3e} = 4 ulp of max |prefix| x ceil(log2 M)), vs plain "
+        f"{err_plain:.3e} (bound {plain_atol:.3e}, + ulp x sqrt(M); plain vs float64 "
+        f"{plain_exact:.3e}); {runs} runs bit-identical: {same}")
+    check(got.dtype == torch.float32 and got.shape == x.shape, f"{shape}: {got.shape}")
+    check(err <= atol and err_plain <= plain_atol and same, f"prefix_cumsum {shape} disagrees")
+    return err_plain
+
+
+def k4_times(phase: str, gen, device, name: str, m: int, d: int) -> dict:
+    """K4's time at (m, d): 20 calls back to back (``ms``) and in one CUDA
+    graph (``graph_ms``), beside the plain version's, torch.cumsum's and
+    the bound (8 M D bytes over the card's memory rate)."""
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum, prefix_cumsum_reference
+
+    x = torch.randn((m, d), generator=gen, device=device)
+    out = torch.empty_like(x)
+    bms, by = bound_ms(m * d, 8 * m * d)
+    r = dict(ms=cuda_ms(lambda: prefix_cumsum(x, out=out), 20),
+             graph_ms=graph_ms(lambda: prefix_cumsum(x, out=out), 20),
+             plain_ms=cuda_ms(lambda: prefix_cumsum_reference(x), 5),
+             library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5), bound_ms=bms, bound_by=by)
+    say(phase, f"prefix_cumsum ({m}, {d}) {name}: kernel {r['ms']:.4f} ms (20 calls back "
+        f"to back; {r['graph_ms']:.4f} ms as a CUDA graph of 20 calls), plain "
+        f"{r['plain_ms']:.4f} ms, library (torch.cumsum) {r['library_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}: 8 M D bytes over 3.35 TB/s), {100 * bms / r['ms']:.1f}% of it "
+        f"({100 * bms / r['graph_ms']:.1f}% in the graph)")
+    return r
+
+
 def scan_phase(gen, device, fds) -> dict:
     """K4 against prefix_cumsum_reference and a float64 prefix at every
     path shape, the 1-D seg_sum's and small ragged ones, with identical
@@ -1463,7 +1572,6 @@ def scan_phase(gen, device, fds) -> dict:
     plain_ms, library_ms, bound_ms, bound_by} and the seg_sum times."""
     from chaorec_tpu_torch import kernels
     from chaorec_tpu_torch.ops.ell import build_segment_transpose, seg_sum
-    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum, prefix_cumsum_reference
 
     paths = scan_shapes(fds)
     e = fds.num_edges
@@ -1473,50 +1581,17 @@ def scan_phase(gen, device, fds) -> dict:
     for name, (m, d) in {**paths, **extra}.items():
         shape = (m,) if d is None else (m, d)
         for dtype in (torch.float32, torch.bfloat16) if name == "dgcf" else (torch.float32,):
-            x = torch.randn(shape, generator=gen, device=device).to(dtype)
-            runs = K4_BIT_RUNS if name == "dgcf" else 2
-            before = prefix_cumsum.launches
-            got = prefix_cumsum(x)
-            same = all(torch.equal(got, prefix_cumsum(x)) for _ in range(runs - 1))
-            torch.cuda.synchronize()
-            check(prefix_cumsum.launches == before + runs, f"prefix_cumsum {shape} did not launch")
-            exact = torch.cumsum(x.double(), 0)
-            plain = prefix_cumsum_reference(x)
-            atol, plain_atol = scan_atol(exact, m), scan_atol(exact, m, sequential=True)
-            err = (got.double() - exact).abs().max().item()
-            err_plain = (got - plain).abs().max().item()
-            plain_exact = (plain.double() - exact).abs().max().item()
-            say("k4", f"prefix_cumsum {shape} {str(dtype)[6:]}: max abs err vs float64 {err:.3e} "
-                f"(bound {atol:.3e} = 4 ulp of max |prefix| x ceil(log2 M)), vs plain "
-                f"{err_plain:.3e} (bound {plain_atol:.3e}, + ulp x sqrt(M); plain vs float64 "
-                f"{plain_exact:.3e}); {runs} runs bit-identical: {same}")
-            check(got.dtype == torch.float32 and got.shape == x.shape, f"{shape}: {got.shape}")
-            check(err <= atol and err_plain <= plain_atol and same,
-                  f"prefix_cumsum {shape} disagrees")
+            err_plain = k4_hold("k4", gen, device, shape, dtype,
+                                K4_BIT_RUNS if name == "dgcf" else 2)
             if dtype == torch.float32:
                 results[name] = dict(max_abs_err=err_plain)
-            del x, got, exact, plain
 
     ptxas = [line.strip() for line in kernels.build("prefix_scan").log.splitlines()
              if "registers" in line or "spill" in line]
     for line in ptxas or ["no ptxas log: the library was built before this run"]:
         say("k4", f"ptxas (csrc/prefix_scan.cu): {line}")
     for name, (m, d) in paths.items():
-        x = torch.randn((m, d), generator=gen, device=device)
-        out = torch.empty_like(x)
-        bms, by = bound_ms(m * d, 8 * m * d)
-        results[name].update(ms=cuda_ms(lambda: prefix_cumsum(x, out=out), 20),
-                             graph_ms=graph_ms(lambda: prefix_cumsum(x, out=out), 20),
-                             plain_ms=cuda_ms(lambda: prefix_cumsum_reference(x), 5),
-                             library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5),
-                             bound_ms=bms, bound_by=by)
-        r = results[name]
-        say("k4", f"prefix_cumsum ({m}, {d}) {name}: kernel {r['ms']:.4f} ms (20 calls back "
-            f"to back; {r['graph_ms']:.4f} ms as a CUDA graph of 20 calls), plain "
-            f"{r['plain_ms']:.4f} ms, library (torch.cumsum) {r['library_ms']:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}: 8 M D bytes over 3.35 TB/s), {100 * bms / r['ms']:.1f}% of it "
-            f"({100 * bms / r['graph_ms']:.1f}% in the graph)")
-        del x, out
+        results[name].update(k4_times("k4", gen, device, name, m, d))
 
     # seg_sum as the models call it, against the atomics route, on the
     # segment ids of the path (DGCF's users over the train edges, MGAT's
@@ -1570,7 +1645,23 @@ def scan_launches(cfg) -> tuple:
     launches once in the backward. DGCF: 2 seg_sums and 2 seg_gathers per
     factor, iteration and layer. DCCF: per layer, 2 adaptive views of 1
     seg_sum and 3 seg_gathers. MGAT: per GAT round (3 a tower, 2 towers), 1
-    seg_sum and 2 seg_gathers."""
+    seg_sum and 2 seg_gathers.
+
+    AdaGCL, L layers (``alternating_step``): a propagation is a seg_gather
+    and a seg_sum, so a stack whose input needs a gradient launches 2 L and
+    one without (a generated view's encoder, under no_grad) L. Losses 1
+    and 2: generator 1's view L, its stack 2 L, generator 2's stack 2 L
+    (its gates under no_grad); loss 3: the main stack 2 L, generator 1's
+    encoder 2 L, generator 2's loss L forward and, from its second layer
+    on, 3 backward a layer (two gate gathers and the propagation's): 18 L -
+    3. Grade, L layers (``grade_step``): loss_1 three views L each, three
+    view stacks and two noise stacks 2 L each; bpr_reg 2 L; gen_loss three
+    encoders L each (its gradient reaches the generators' heads only): 18
+    L. Both evaluate with one stack: L."""
+    if cfg.Model == "AdaGCL":
+        return 18 * cfg.n_layers - 3, cfg.n_layers
+    if cfg.Model == "Grade":
+        return 18 * cfg.n_layers, cfg.n_layers
     if cfg.Model == "DGCF":
         sums = 2 * cfg.n_factors * cfg.n_iterations * cfg.n_layers
         return 2 * sums, sums
@@ -2298,7 +2389,7 @@ def path_config(name: str, args):
     it: CF_Diff at MODEL_CONFIG on the baby-sized set, LightGCN at
     LIGHTGCN_CONFIG and the rest of its family at their Model_YAML file's
     first combo on the beauty-sized set, and so the id-only models and
-    phases 39-42's, every other model at its first combo on the
+    phases 39-47's, every other model at its first combo on the
     sports-sized set."""
     from chaorec_tpu_torch.config import Config
 
@@ -2307,8 +2398,8 @@ def path_config(name: str, args):
                       **MODEL_CONFIG), DATASET
     if name == "LightGCN":
         return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
-    ds = (LINEAR_DATASET if name in LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
-          else FREEDOM_DATASET)
+    ds = (LINEAR_DATASET if name in (LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
+                                     + FAMILY2_MODELS + TOWER_MODELS) else FREEDOM_DATASET)
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
 
@@ -2341,6 +2432,8 @@ def seeded_run(cfg, ds, device, steps=None):
                     if i % model.fix_steps == 0:
                         graphs = family.sample_graphs(params)
                     loss = family.train_step(params, opt, trainer.bpr_batch(batch), graphs)
+                elif family is not trainer:  # AdaGCL's, Grade's: every optimizer a batch
+                    loss = family.train_step(params, opt, trainer.bpr_batch(batch))
                 else:
                     loss = trainer.train_step(params, opt, trainer.bpr_batch(batch))
                 losses.append(loss.detach())
@@ -2375,7 +2468,8 @@ def determinism_phase(args, device, datasets) -> dict:
 
 class Cuts:
     """The side of each clip bound (``torch.clamp``), hard cut
-    (``models/graphaug.hard_cut``) and k-means assignment
+    (``models/graphaug.hard_cut``, the generated views' 0.5 cut
+    ``models/adagcl.kept_edges``) and k-means assignment
     (``ops/kmeans._assign``) a step takes, recorded on one step and held
     to on another, as ``Kinks`` holds the ReLUs.
 
@@ -2394,10 +2488,11 @@ class Cuts:
 
     @contextlib.contextmanager
     def _patched(self, mode):
-        from chaorec_tpu_torch.models import graphaug
+        from chaorec_tpu_torch.models import adagcl, grade, graphaug
         from chaorec_tpu_torch.ops import kmeans
 
         clamp, cut, assign = torch.clamp, graphaug.hard_cut, kmeans._assign
+        kept = adagcl.kept_edges
         self.flips, self._next = 0, 0
         if mode == "record":
             self.sides = []
@@ -2428,10 +2523,13 @@ class Cuts:
                                                 lambda rec: x * rec.to(x.dtype))
         kmeans._assign = lambda x, c: pinned(assign(x, c), lambda: assign(x, c),
                                              lambda rec: rec)
+        adagcl.kept_edges = grade.kept_edges = lambda p: pinned(
+            p >= 0.5, lambda: kept(p), lambda rec: rec.to(p.dtype))
         try:
             yield self
         finally:
             torch.clamp, graphaug.hard_cut, kmeans._assign = clamp, cut, assign
+            adagcl.kept_edges = grade.kept_edges = kept
         check(mode == "record" or self._next == len(self.sides),
               f"a step made {self._next} pinned calls, its record {len(self.sides)}")
 
@@ -2540,12 +2638,7 @@ def family_cli_run(device, ds, name, cfg, grid) -> tuple:
     say("family", f"{name} best test metrics: " + "; ".join(
         f"@{k} recall {m['recall']:.5f} ndcg {m['ndcg']:.5f}" for k, m in best.items()))
     if name in FAMILY_UNEXPORTED:
-        log = open(os.path.join(cfg.log_dir, f"{name}_{cfg.data_path}.log")).read()
-        skipped = "export_artifact: best combo's trainer kept no weights - skipping export"
-        check(skipped in log and not os.path.exists(cfg.export_artifact),
-              f"{name}: the export was not skipped")
-        say("family", f"{name} --export_artifact: skipped with the JAX CLI's warning, no file "
-            "(its trainer keeps no weights of its own)")
+        check_export_skipped("family", name, cfg)
     return model, k2
 
 
@@ -2838,6 +2931,429 @@ def family_phases(args, device, ds) -> tuple:
         torch.cuda.empty_cache()
     bspm._SPECTRAL_CACHE.clear()
     return time.perf_counter() - t_start, gformer_launches, lse
+
+
+def check_export_skipped(phase: str, name: str, cfg) -> None:
+    """``name``'s CLI run logged the JAX CLI's warning and wrote no
+    artifact (a family trainer that keeps no weights of its own)."""
+    log = open(os.path.join(cfg.log_dir, f"{name}_{cfg.data_path}.log")).read()
+    skipped = "export_artifact: best combo's trainer kept no weights - skipping export"
+    check(skipped in log and not os.path.exists(cfg.export_artifact),
+          f"{name}: the export was not skipped")
+    say(phase, f"{name} --export_artifact: skipped with the JAX CLI's warning, no file "
+        "(its trainer keeps no weights of its own)")
+
+
+def family2_cli_run(device, ds, name, cfg, grid) -> tuple:
+    """Phase 43's ``cli.run`` of AdaGCL or Grade on ``ds``: each epoch's
+    loss, walls (and the training wall a step), eval users per second and
+    peak memory; K4's launches against ``scan_launches`` (each step and each
+    evaluation), no other kernel; the export skipped. Returns (the model,
+    K4's launches)."""
+    from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+
+    probe = EpochProbe()
+    logging.getLogger().addFilter(probe)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with BuildProbe() as built:
+            best = cli.run(cfg, grid, ds, device)
+            torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeFilter(probe)
+    run_s = time.perf_counter() - t0
+    k4, others = prefix_cumsum.launches, other_counts(prefix_cumsum)
+    model = built.models[0]
+    check(len(built.models) == 1 and model.device.type == device.type,
+          f"{name} is not on the card")
+    combo = {k: grid[k][0] for k in grid["hyper_parameters"]}
+    n_batches = math.ceil(ds.num_edges / cfg.batch_size)
+    per_step, per_eval = scan_launches(cfg.replace(**combo))
+    expected = cfg.num_epoch * (n_batches * per_step + per_eval)
+    for e, ep in enumerate(probe.epochs):
+        say("family2", f"{name} epoch {e + 1}: loss {ep['loss']:.5f}, wall {ep['wall_s']:.3f} s "
+            f"(training {ep['train_s']:.3f} s, {1e3 * ep['train_s'] / n_batches:.2f} ms a step; "
+            f"eval {ep['eval_s']:.3f} s: {ds.num_user / ep['eval_s']:.0f} users/s), peak device "
+            f"memory {ep['peak_gib']:.2f} GiB")
+    say("family2", f"{name} cli.run {combo}: {cfg.num_epoch} epochs x {n_batches} batches of "
+        f"{cfg.batch_size} edges: {run_s:.3f} s wall; prefix_cumsum launches {k4} (expected "
+        f"{expected} = {cfg.num_epoch} x ({n_batches} x {per_step} + {per_eval} eval), each at "
+        f"({2 * ds.num_edges}, {cfg.dim_E})), other kernels {others} (expected none)")
+    check(k4 == expected and not any(others), f"{name} launched {k4} and {others}")
+    check(len(probe.epochs) == cfg.num_epoch, f"{len(probe.epochs)} epochs logged")
+    check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
+    check(sorted(best) == [5, 10, 20] and all(
+        math.isfinite(v) for m in best.values() for v in m.values()), f"best {best}")
+    say("family2", f"{name} best test metrics: " + "; ".join(
+        f"@{k} recall {m['recall']:.5f} ndcg {m['ndcg']:.5f}" for k, m in best.items()))
+    check_export_skipped("family2", name, cfg)
+    return model, k4
+
+
+def adam_reference(p0, m0, v0, count, g, lr, eps):
+    """(p, m, v) of one Adam step (betas 0.9, 0.999) in float64 from (p0,
+    m0, v0) after ``count`` steps, on the gradient g."""
+    b1, b2 = 0.9, 0.999
+    p0, m0, v0, g = (x.double() for x in (p0, m0, v0, g))
+    t = count + 1
+    m = b1 * m0 + (1 - b1) * g
+    v = b2 * v0 + (1 - b2) * g * g
+    return p0 - lr * (m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + eps), m, v
+
+
+def adam_state(opt, p):
+    """(step, exp_avg, exp_avg_sq) of ``p`` in ``opt``, copied to the CPU
+    (zeros before its first step)."""
+    s = opt.state.get(p)
+    if not s:
+        return 0, torch.zeros(p.shape), torch.zeros(p.shape)
+    return int(s["step"]), s["exp_avg"].detach().cpu().clone(), s["exp_avg_sq"].detach().cpu().clone()
+
+
+def set_adam_state(opt, p, step, m, v):
+    """``p``'s state in ``opt`` set to (step, m, v), made as torch's Adam
+    makes it at a param's first step if ``p`` has none yet."""
+    s = opt.state[p]
+    if not s:
+        s["step"] = torch.zeros((), dtype=torch.float32)
+        s["exp_avg"], s["exp_avg_sq"] = torch.zeros_like(p), torch.zeros_like(p)
+    s["step"].fill_(step)
+    s["exp_avg"].copy_(m)
+    s["exp_avg_sq"].copy_(v)
+
+
+@contextlib.contextmanager
+def kernel_order_prefix():
+    """The segment sums' prefix of host tensors in K4's own summation order
+    (``ops/prefix_scan.prefix_cumsum_kernel_order``, bit for bit the
+    kernel's) instead of torch.cumsum, which on the CPU rounds once. For the
+    comparisons only."""
+    from chaorec_tpu_torch.ops import ell
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum_kernel_order
+
+    plain = ell.prefix_cumsum
+    ell.prefix_cumsum = prefix_cumsum_kernel_order
+    try:
+        yield
+    finally:
+        ell.prefix_cumsum = plain
+
+
+def multi_opt_card_vs_cpu(name, cfg, sds, device, card_ctx=contextlib.nullcontext) -> dict:
+    """Phase 46 for AdaGCL and Grade: FAMILY2_STEP_BATCHES batches of the
+    family trainer's step on the CPU and on ``device`` (under ``card_ctx``),
+    on the same batches and draws, the card on the CPU's side of every
+    ReLU, clip and cut (Kinks, Cuts), each optimizer step of the card's
+    from the CPU's params and optimizer state before it (set in the step's
+    hook). The CPU's segment sums take their prefixes in K4's own summation
+    order (``kernel_order_prefix``), so the two steps share every prefix
+    rounding and differ in the other operations' only.
+
+    Each gradient is held within the larger of the STEP bounds and
+    SPREAD_FACTOR times its spread: how far it moves when the CPU steps
+    from inputs nudged by 2^-24 of each entry (the step's own condition).
+    Checked: the optimizer steps' order and counts; each batch's summed
+    loss and each optimizer step's gradient against the CPU's; the card's
+    params and moments after each optimizer step against the float64 Adam
+    step of the CPU's inputs with the card's own gradient (ADAM_STEP_RTOL of
+    the tensor's largest entry). Adam divides a gradient by its running
+    root mean square, so an entry whose gradient is within rounding of 0
+    can move by up to the learning rate either way: the entries where the
+    card's params end more than STEP_RTOL of the tensor's largest entry
+    from the CPU's are counted, not bounded. Measured, not bounded: how far
+    K4's summation order moves each gradient from the same CPU step with
+    prefixes summed in double and rounded once (``order``, in shares of the
+    gradient's bound). Returns {loss, grad, adam, order (worst shares),
+    off, flips, cut_flips, k4 (the card's K4 launches a batch), steps,
+    knn_rows (Grade: the items whose multimodal kNN neighbours the card's
+    own build picked otherwise; the card takes the CPU's graph)}."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches
+    from chaorec_tpu_torch.models import adagcl, build_model, grade
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train.loop import deterministic_mode
+
+    step_fn = adagcl.alternating_step if name == "AdaGCL" else grade.grade_step
+    cpu_model = build_model(cfg, sds, "cpu")
+    models = {"cpu": cpu_model, "card": build_model(cfg, sds, device), "nudged": cpu_model,
+              "exact": cpu_model}
+    knn_rows = 0
+    if name == "AdaGCL":  # each device's generator draws its own frozen copy
+        models["card"].load_frozen_feats(cpu_model.frozen_feats)
+    else:  # each device's top-k picks its own neighbours where two nearly tie
+        cpu_g, card_g = cpu_model.mm_graph, models["card"].mm_graph
+        knn_rows = int((torch.sort(card_g.indices.cpu(), 1).values
+                        != torch.sort(cpu_g.indices, 1).values).any(1).sum())
+        models["card"].mm_graph = dataclasses.replace(
+            cpu_g, indices=cpu_g.indices.to(device), weights=cpu_g.weights.to(device))
+    fams = {k: m.trainer_cls(m, sds, cfg) for k, m in models.items()}
+    base = fams["cpu"]._base
+    params = {"cpu": base.init_params()}
+    for side in ("card", "nudged", "exact"):
+        params[side] = {k: v.detach().to(models[side].device, copy=True).requires_grad_()
+                        for k, v in params["cpu"].items()}
+    opts = {k: (f.make_optimizer(params[k]), *f.gen_opts) for k, f in fams.items()}
+    n_main = 3 if name == "AdaGCL" else 2
+    labels = ([f"main{i + 1}" for i in range(n_main)]
+              + [f"g{i + 1}" for i in range(len(opts["cpu"]) - 1)])
+    nudge_gen = torch.Generator().manual_seed(46)
+
+    def index(label):  # the optimizer of a step label, as an index into opts
+        return 0 if label.startswith("main") else int(label[1:])
+
+    def names_of(side, j):
+        mine = {id(p) for grp in opts[side][j].param_groups for p in grp["params"]}
+        return [k for k, p in params[side].items() if id(p) in mine]
+
+    def set_side(side, inputs, states):
+        """``side``'s params (nudged by 2^-24 of each entry on that side),
+        and the states of optimizers ``states`` ({j: {name: (step, m,
+        v)}}), set to the CPU's."""
+        on = models[side].device
+        with torch.no_grad():
+            for k, p in params[side].items():
+                x = inputs[k]
+                if side == "nudged":
+                    x = x * (1 + 2.0 ** -24 * torch.randn(x.shape, generator=nudge_gen))
+                p.copy_(x)
+        for j, st in states.items():
+            for k, (step, m, v) in st.items():
+                if step or opts[side][j].state.get(params[side][k]):
+                    set_adam_state(opts[side][j], params[side][k], step, m.to(on), v.to(on))
+
+    lr = float(cfg.learning_rate)
+    out = dict(loss=0.0, grad=(0.0, ""), adam=(0.0, ""), order=(0.0, ""), off=0, flips=0,
+               cut_flips=0, k4=[], steps=labels, knn_rows=knn_rows)
+    batches = make_edge_batches(base.generator, base.edges, cfg.batch_size)
+    for b in range(FAMILY2_STEP_BATCHES):
+        batch = base.bpr_batch(batches[b])
+        draws = cpu_model.draws(base.generator, batch)
+        start_params = {k: p.detach().clone() for k, p in params["cpu"].items()}
+        start_states = {j: {k: adam_state(o, params["cpu"][k]) for k in names_of("cpu", j)}
+                        for j, o in enumerate(opts["cpu"])}
+        rec = {}
+
+        def hook(side):
+            def on_step(label):
+                j = index(label)
+                mine = names_of(side, j)
+                rec[side].append(dict(
+                    label=label, names=mine,
+                    params={k: p.detach().cpu().clone() for k, p in params[side].items()},
+                    grads={k: params[side][k].grad.detach().cpu().clone() for k in mine},
+                    state={k: adam_state(opts[side][j], params[side][k]) for k in mine}))
+                if side != "cpu":  # the next optimizer step from the CPU's inputs
+                    cpu = rec["cpu"][len(rec[side]) - 1]
+                    set_side(side, cpu["params"], {j: cpu["state"]})
+            return on_step
+
+        kinks, cuts = Kinks(), Cuts()
+        losses = {}
+        # the CPU in K4's order; the card through K4; the CPU nudged; the CPU
+        # with its own prefixes (summed in double, rounded once)
+        for side, ctx in (("cpu", kernel_order_prefix), ("card", card_ctx),
+                          ("nudged", kernel_order_prefix), ("exact", contextlib.nullcontext)):
+            on = models[side].device
+            rec[side] = []
+            if side != "cpu":
+                set_side(side, start_params, start_states)
+            reset_counts()
+            pins = (kinks.record(), cuts.record()) if side == "cpu" else (kinks.replay(),
+                                                                          cuts.replay())
+            with ctx(), deterministic_mode(), pinned_sides(*pins):
+                losses[side] = step_fn(models[side], opts[side], params[side],
+                                       batch_to(batch, on), clone_to(draws, on),
+                                       on_step=hook(side)).item()
+            if side == "card":
+                out["k4"].append(prefix_cumsum.launches)
+                out["flips"] += kinks.flips
+                out["cut_flips"] += cuts.flips
+                others = other_counts(prefix_cumsum)
+                check(not any(others), f"{name} card step launched {others}")
+            check([e["label"] for e in rec[side]] == labels,
+                  f"{name} {side}: the optimizer steps ran {[e['label'] for e in rec[side]]}")
+        out["loss"] = max(out["loss"], abs(losses["card"] - losses["cpu"]) / max(
+            STEP_LOSS_RTOL * abs(losses["cpu"]),
+            SPREAD_FACTOR * abs(losses["nudged"] - losses["cpu"])))
+        states = {j: dict(s) for j, s in start_states.items()}
+        for i, c in enumerate(rec["cpu"]):
+            g = rec["card"][i]
+            j = index(c["label"])
+            eps = opts["cpu"][j].param_groups[0]["eps"]
+            inputs = start_params if i == 0 else rec["cpu"][i - 1]["params"]
+            scale = max(w.abs().max().item() for w in c["grads"].values())
+            for k, want in c["grads"].items():
+                base_tol = STEP_RTOL * want.abs().max().item() + STEP_ATOL * scale
+                drift = (rec["nudged"][i]["grads"][k] - want).abs().max().item()
+                bound = max(base_tol, SPREAD_FACTOR * drift)
+                what = f"{k} of {c['label']}"
+                out["grad"] = max(out["grad"], ((g["grads"][k] - want).abs().max().item() / bound,
+                                                what))
+                out["order"] = max(out["order"], (
+                    (rec["exact"][i]["grads"][k] - want).abs().max().item() / bound, what))
+            for k in c["names"]:
+                step, m0, v0 = states[j][k]
+                p, m, v = adam_reference(inputs[k], m0, v0, step, g["grads"][k], lr, eps)
+                check(g["state"][k][0] == step + 1 == c["state"][k][0],
+                      f"{name} {c['label']}: {k}'s step count")
+                for what, got, want in (("", g["params"][k], p),
+                                        (" first moment", g["state"][k][1], m),
+                                        (" second moment", g["state"][k][2], v)):
+                    err = (got.double() - want).abs().max().item()
+                    share = err / (ADAM_STEP_RTOL * want.abs().max().item() + 1e-30)
+                    out["adam"] = max(out["adam"], (share, f"{k}{what} after {c['label']}"))
+                bound = STEP_RTOL * c["params"][k].abs().max().item() + STEP_ATOL
+                out["off"] += int(((g["params"][k] - c["params"][k]).abs() > bound).sum())
+            for k in set(inputs) - set(c["names"]):  # the other params did not move
+                check(torch.equal(g["params"][k], inputs[k]),
+                      f"{name} {c['label']} moved {k}, not its optimizer's")
+            states[j] = c["state"]
+        for side in ("card", "nudged", "exact"):  # each side's copies end as the CPU's
+            set_side(side, params["cpu"], {})
+    return out
+
+
+def family2_phases(args, device, ds) -> tuple:
+    """Phases 43-47: AdaGCL's and Grade's CLI runs on beauty through K4 (the
+    export skipped), K4 at their shape, the four towers' CLI runs (MGCL's
+    export served), one step of each of the six on the card against the
+    CPU (AdaGCL and Grade over FAMILY2_STEP_BATCHES batches, optimizer step
+    by optimizer step), and each one's step profile. Returns (their wall
+    seconds, K4's launches of each CLI run, K4's results at their
+    shape)."""
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    t_start = time.perf_counter()
+    # 43. family2: cli.run of AdaGCL and Grade at their first combo ---------
+    k4_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in FAMILY2_MODELS:
+            cfg, _ = path_config(name, args)
+            model, k4_runs[name] = family2_cli_run(device, ds, name, cfg.replace(
+                num_epoch=FAMILY2_EPOCHS, log_dir=args.out_dir,
+                export_artifact=os.path.join(tmp, f"{name}.npz")), first_combo(name)[1])
+            dim = model.dim_E
+            del model
+            torch.cuda.empty_cache()
+
+    # 44. k4ag: K4 at their shape, the doubled edges by dim_E --------------
+    gen = torch.Generator(device=device).manual_seed(args.seed + 44)
+    m = 2 * ds.num_edges
+    k4ag = dict(shape=[m, dim], max_abs_err=k4_hold("k4ag", gen, device, (m, dim)))
+    k4ag.update(k4_times("k4ag", gen, device, "adagcl_grade", m, dim))
+    torch.cuda.empty_cache()
+
+    # 45. towers: cli.run of the four, MGCL's export served -----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in TOWER_MODELS:
+            cfg, _ = path_config(name, args)
+            art = os.path.join(tmp, f"{name}.npz") if name == TOWER_SERVED else ""
+            models, _ = linear_cli_run("towers", device, ds, name, cfg.replace(
+                num_epoch=TOWER_EPOCHS, log_dir=args.out_dir, export_artifact=art),
+                first_combo(name)[1])
+            check(models[0].device.type == device.type, f"{name} is not on the card")
+            if art:
+                reset_counts()
+                check_embeddings_serving("towers", art, ds, device, name)
+                check(not any(other_counts()), f"{name} serving launched {other_counts()}")
+            del models
+            torch.cuda.empty_cache()
+
+    # 46. fam2step: one step of each on the card against the CPU's ---------
+    # on phase 32's seeded set with features, float32 R, equal params, batch
+    # and draws, the card held to the CPU's side of each kink (Kinks, Cuts)
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE, features=True)
+    for name in TOWER_MODELS:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+        trainer = Trainer(cpu_model, sds, cfg)
+        params = trainer.init_params()
+        batch = first_batch(trainer, cfg)
+        draws = cpu_model.draws(trainer.generator, batch) if hasattr(cpu_model, "draws") else None
+        kinks, cuts = Kinks(), Cuts()
+        c_loss, c_grads, _ = device_step(cpu_model, params, None, batch, draws,
+                                         pinned_sides(kinks.record(), cuts.record()))
+        reset_counts()
+        g_loss, g_grads, _ = device_step(card_model, params, None, batch, draws,
+                                         pinned_sides(kinks.replay(), cuts.replay()))
+        worst, loss_rel, others = worst_share(g_grads, c_grads), abs(g_loss - c_loss) / abs(
+            c_loss), other_counts()
+        say("fam2step", f"one {name} step of {batch.users.shape[0]} edges on a float32 R "
+            f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}, 4096- and 384-wide features), "
+            f"card vs CPU on the same params, batch, negatives"
+            f"{', dropout masks' if draws else ''}: loss {g_loss:.7f} vs {c_loss:.7f} (rel "
+            f"{loss_rel:.2e}, bound {STEP_LOSS_RTOL:g}); worst gradient {worst[1]} at "
+            f"{worst[0]:.3f} of its bound; ReLU units on the other side {kinks.flips}, clip "
+            f"entries {cuts.flips}; kernel launches {others}")
+        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0 and not any(others),
+              f"{name} card step disagrees")
+        del cpu_model, card_model, trainer
+    for name in FAMILY2_MODELS:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        r = multi_opt_card_vs_cpu(name, cfg, sds, device)
+        per_step = scan_launches(cfg)[0]
+        say("fam2step", f"{name}, {FAMILY2_STEP_BATCHES} batches of {cfg.batch_size} edges "
+            f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}, {cfg.n_layers} layers), each "
+            f"optimizer step ({', '.join(r['steps'])}) of the card's from the CPU's params and "
+            f"state, same batch and draws: worst loss at {r['loss']:.3f} of its bound, worst "
+            f"gradient {r['grad'][1]} at {r['grad'][0]:.3f} of its bound (each the larger of the "
+            f"step bounds and {SPREAD_FACTOR:g} x its spread, the CPU's step from inputs nudged by "
+            f"2^-24; the CPU's prefixes in K4's summation order); K4's order against prefixes "
+            f"rounded once moves {r['order'][1]} by {r['order'][0]:.3f} of its bound (not "
+            f"bounded); the card's Adam steps against float64 Adam on its own gradient: worst "
+            f"{r['adam'][1]} at {r['adam'][0]:.3f} of {ADAM_STEP_RTOL:g} of the tensor's max; "
+            f"entries the Adam steps left more than {STEP_RTOL:g} of the tensor's max from the "
+            f"CPU's (a gradient within rounding of 0) {r['off']}; ReLU units on the other side "
+            f"{r['flips']}, clip and cut entries {r['cut_flips']}; the card's K4 launches a "
+            f"batch {r['k4']} (expected {per_step})"
+            + (f"; items whose kNN neighbours the card's own build picked otherwise "
+               f"{r['knn_rows']} (the card takes the CPU's graph)" if name == "Grade" else ""))
+        check(r["loss"] <= 1.0 and r["grad"][0] <= 1.0 and r["adam"][0] <= 1.0
+              and r["k4"] == [per_step] * FAMILY2_STEP_BATCHES, f"{name} card steps disagree")
+    torch.cuda.empty_cache()
+
+    # 47. fam2profile: one step of each at beauty under the profiler --------
+    groups = {"K4 (prefix scan)": ("prefix_scan", "lookback"),
+              "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "index kernels (gathers, their scatters, index_add_, sorts)": (
+                  "index", "gather", "scatter", "sort", "radix"),
+              "embedding_bag (fixed-order segment sums)": ("embedding_bag", "embeddingbag"),
+              "reductions (norms, sums, softmax, logsumexp)": ("reduce_kernel", "softmax",
+                                                               "logsumexp"),
+              "elementwise": ("elementwise",)}
+    for name in FAMILY2_MODELS + TOWER_MODELS:
+        cfg, _ = path_config(name, args)
+        model = build_model(cfg, ds, device)
+        family = getattr(model, "trainer_cls", Trainer)(model, ds, cfg)
+        trainer = getattr(family, "_base", family)
+        params = trainer.init_params()
+        opt = trainer.make_optimizer(params)
+        batch = first_batch(trainer, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step = family.train_step if family is not trainer else trainer.train_step
+        device_profile("fam2profile", f"one {name} training step of {cfg.batch_size} edges at "
+                       f"{LINEAR_DATASET} (forward, backward, every optimizer)",
+                       lambda: step(params, opt, batch),
+                       os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+                       groups=groups)
+        k4, others = prefix_cumsum.launches, other_counts(prefix_cumsum)
+        # device_profile calls the step three times: warm-up, timed, profiled
+        expected = 3 * scan_launches(cfg)[0] if name in FAMILY2_MODELS else 0
+        say("fam2profile", f"{name} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K4 launches {k4} (expected "
+            f"{expected}), other kernels {others}")
+        check(k4 == expected and not any(others), f"{name} profile launched {k4} and {others}")
+        del model, family, trainer, params, opt
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t_start, k4_runs, k4ag
 
 
 def main(argv=None) -> int:
@@ -3219,11 +3735,16 @@ def main(argv=None) -> int:
     say("famprofile", f"phases 39-42's share of the run: {family_s:.1f} s, their "
         f"{len(FAMILY_TRAINED)} trained models' determinism runs {family_det_s:.1f} s; "
         f"{family_s + family_det_s:.1f} s in all")
+    family2_s, family2_k4, k4ag = family2_phases(args, device, bds)
+    family2_det_s = sum(sum(det[n]["seconds"]) for n in FAMILY2_MODELS + TOWER_MODELS)
+    say("fam2profile", f"phases 43-47's share of the run: {family2_s:.1f} s, their "
+        f"{len(FAMILY2_MODELS + TOWER_MODELS)} models' determinism runs {family2_det_s:.1f} s; "
+        f"{family2_s + family2_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
     # (the CF_Diff export of phase 4, the CLI runs of phases 7, 10, 14, 21,
-    # 24 and 27, the bf16 epoch of phase 13).
+    # 24, 27, 39 and 43, the bf16 epoch of phase 13).
     fwd = dict(route="cuda", source="chaorec_tpu_torch/csrc/fused_mha.cu",
                replaces="chaorec_tpu/ops/pallas_attn.py:65")
     no_library = "no PyTorch call draws this Philox dropout mask"
@@ -3301,6 +3822,18 @@ def main(argv=None) -> int:
             "launches": seg_launches[model], **k4[name],
             "note": f"launches: the {model} CLI run's, over all its shapes (one launch is a "
                     "memset of its scratch and the one-pass kernel); ms: 20 calls back to back; "
+                    "graph_ms: 20 calls in one CUDA graph; library: torch.cumsum, one call"})
+    for name in FAMILY2_MODELS:
+        cfg, _ = path_config(name, args)
+        entries.append({
+            "name": f"prefix_scan@{name.lower()}", "route": "cuda",
+            "source": "chaorec_tpu_torch/csrc/prefix_scan.cu",
+            "replaces": "chaorec_tpu/ops/pallas_scan.py:49", **k4ag,
+            "launches": family2_k4[name],
+            "note": f"launches: the {name} CLI run's ({FAMILY2_EPOCHS} epochs, "
+                    f"{scan_launches(cfg)[0]} a step and {scan_launches(cfg)[1]} an evaluation, "
+                    "all at this shape: the doubled edges by dim_E); AdaGCL's and Grade's "
+                    "entries share one measurement of the shape; ms: 20 calls back to back; "
                     "graph_ms: 20 calls in one CUDA graph; library: torch.cumsum, one call"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

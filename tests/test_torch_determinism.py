@@ -21,6 +21,7 @@ from chaorec_tpu_torch.models import bspm as tbspm
 from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models import cf_diff as tcf
 from chaorec_tpu_torch.train import loop as tloop
+from test_torch_adagcl_grade import FLAGS as FAMILY2
 from test_torch_bspm import FIRST as BSPM
 from test_torch_contrastive import FLAGS as CONTRASTIVE
 from test_torch_dccf import CFG as DCCF
@@ -31,6 +32,7 @@ from test_torch_gformer import FIRST as GFORMER
 from test_torch_idonly import FLAGS as IDONLY
 from test_torch_lightgcn import BPR, LIGHTGCN
 from test_torch_mgat import CFG as MGAT
+from test_torch_mm_towers import FLAGS as MM_TOWERS
 from test_torch_ncl import CFG as NCL
 from test_torch_ngcf_layergcn import LAYERGCN, NGCF_FLAGS
 from test_torch_sgl import CFG as SGL
@@ -44,7 +46,8 @@ CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF
            "DiffRec": DIFFREC, **{n: IDONLY[n] for n in ("DHCF", "LightGODE", "SelfCF",
                                                           "FKAN_GCF", "MCLN")},
            "BSPM": BSPM, "GFormer": GFORMER,
-           **{n: CONTRASTIVE[n] for n in ("HCCF", "LightGCL", "VGCL", "GraphAug")}}
+           **{n: CONTRASTIVE[n] for n in ("HCCF", "LightGCL", "VGCL", "GraphAug")},
+           "AdaGCL": FAMILY2["AdaGCL"], "Grade": FAMILY2["Grade"], **MM_TOWERS}
 SEED = 42
 # The id-only models' CPU cases run on one torch thread, as their own port
 # tests do (test_torch_vae.one_torch_thread); the others keep the default
@@ -55,8 +58,9 @@ ONE_THREAD = (*VAES, "DiffRec", "DHCF", "LightGODE", "SelfCF", "FKAN_GCF", "MCLN
 def _run(ds, name, device, seed=SEED, epochs=2):
     """(per-epoch losses, rank list) of a fresh trainer: pre_epoch and a
     training epoch per epoch, as ``Trainer.run`` does, then ``evaluate``.
-    A family trainer's epochs are its own (GFormer's resampling groups) on
-    the standard trainer it wraps; BSPM, which trains nothing, is built
+    A family trainer's epochs are its own (GFormer's resampling groups,
+    AdaGCL's and Grade's multi-optimizer steps) on the standard trainer it
+    wraps; BSPM, which trains nothing, is built
     from an empty spectral cache and only evaluated."""
     cfg = TConfig(**CONFIGS[name], seed=seed, num_epoch=epochs)
     if name == "BSPM":

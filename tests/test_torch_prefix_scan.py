@@ -14,10 +14,11 @@ version (torch.cumsum, whose rows are added one after another on the card)
 with ``ulp x sqrt(M)`` more, at the shapes DGCF, DCCF and MGAT give it on
 sports.
 
-``kernel_order`` is the kernel's fp32 summation order written in numpy. On
-the CPU it shows that order inside the gate (also carried over 10,607
-tiles); on the card the kernel's bits equal it, so the look-back's carry is
-the serial running total whatever window each tile found.
+``kernel_order`` (``ops/prefix_scan.py``) is the kernel's fp32 summation
+order written in numpy. On the CPU it shows that order inside the gate
+(also carried over 10,607 tiles); on the card the kernel's bits equal it,
+so the look-back's carry is the serial running total whatever window each
+tile found.
 """
 
 import math
@@ -29,6 +30,7 @@ import torch
 
 from chaorec_tpu.ops.pallas_scan import chunked_cumsum
 from chaorec_tpu_torch.ops import prefix_scan as tscan
+from chaorec_tpu_torch.ops.prefix_scan import kernel_order
 
 MS = [1, 7, 511, 513, 1300]
 DS = [1, 32, 100, 256]
@@ -81,33 +83,6 @@ def test_out_and_bf16_input():
     assert got.data_ptr() == buf[1:].data_ptr() and float(buf[0].abs().max()) == 5.0
     torch.testing.assert_close(buf[1:], torch.cumsum(x.double(), 0).float(), rtol=0, atol=1e-4)
     assert tscan.prefix_cumsum.launches == before
-
-
-def kernel_order(x: np.ndarray, lay: tscan.TileLayout) -> np.ndarray:
-    """csrc/prefix_scan.cu's fp32 summation order, in numpy: each group's
-    run scanned in order, the run totals scanned over the groups
-    (Hillis-Steele), the carry as the serial running total of the tiles'
-    aggregates, out = (carry + the groups before) + the run's prefix. The
-    columns are independent, so column tiles do not change it."""
-    m, d = x.shape
-    g, run, rows, tiles = lay.groups, lay.run_rows, lay.tile_rows, lay.row_tiles
-    r = np.arange(m)
-    blocks = np.zeros((tiles, g, run, d), np.float32)
-    blocks[r // rows, r % rows // run, r % rows % run] = x
-    incl = np.cumsum(blocks, axis=2, dtype=np.float32)
-    part = incl[:, :, -1].copy()
-    off = 1
-    while off < g:
-        part[:, off:] = part[:, off:] + part[:, :-off]
-        off *= 2
-    before = np.concatenate([np.zeros_like(part[:, :1]), part[:, :-1]], axis=1)
-    carry = np.zeros((tiles, d), np.float32)
-    total = part[0, -1]
-    for i in range(1, tiles):
-        carry[i] = np.float32(0) + total
-        total = carry[i] + part[i, -1]
-    out = (carry[:, None, :] + before)[:, :, None, :] + incl
-    return out.reshape(tiles, g * run, d)[:, :rows].reshape(-1, d)[:m]
 
 
 # the 8 shapes of the parent's chunk layout test: DGCF's, DCCF's, MGAT's
