@@ -40,14 +40,23 @@ from chaorec_tpu_torch.ops.ell import SegmentBags, segment_bags
 
 
 def masked_dense_r(edge_u: torch.Tensor, edge_i: torch.Tensor, keep: torch.Tensor,
-                   num_user: int, num_item: int, eps: float = 1e-7) -> torch.Tensor:
-    """(U, I) float32 R over the edges with ``keep`` 1, on their device."""
+                   num_user: int, num_item: int, eps: float = 1e-7, self_loops: bool = False):
+    """(U, I) float32 R over the edges with ``keep`` 1, on their device.
+    With ``self_loops`` each degree counts one more and the result is
+    ``(R, self_u, self_i)``, the self-loop weights 1 / (d + eps): a hop is
+    then ``R xi + self_u xu`` and ``R^T xu + self_i xi`` (MMGCN's and
+    MVGAE's graph)."""
     keep = keep.to(torch.float32)
     du = torch.zeros(num_user, dtype=torch.float32, device=keep.device).index_add_(0, edge_u, keep)
     di = torch.zeros(num_item, dtype=torch.float32, device=keep.device).index_add_(0, edge_i, keep)
+    if self_loops:
+        du, di = du + 1.0, di + 1.0
     w = keep * torch.rsqrt((du[edge_u] + eps) * (di[edge_i] + eps))
     dense = torch.zeros((num_user, num_item), dtype=torch.float32, device=keep.device)
-    return dense.index_put_((edge_u, edge_i), w, accumulate=True)
+    dense = dense.index_put_((edge_u, edge_i), w, accumulate=True)
+    if self_loops:
+        return dense, 1.0 / (du + eps), 1.0 / (di + eps)
+    return dense
 
 
 def bernoulli_keep(generator: torch.Generator, num_edges: int, keep_prob: float) -> torch.Tensor:
@@ -116,6 +125,19 @@ class _EdgeHop(torch.autograd.Function):
         gxi = ctx.bags.items.sum(g_u, w) if ctx.needs_input_grad[3] else None
         return (gw, gw_i, gxu.to(xu.dtype) if gxu is not None else None,
                 gxi.to(xi.dtype) if gxi is not None else None, None, None, None)
+
+
+def kept_edge_weights(edge_u: torch.Tensor, edge_i: torch.Tensor, keep: torch.Tensor,
+                      bags: EdgeBags, num_user: int, num_item: int) -> torch.Tensor:
+    """(E,) float32 ``keep * max(d_u d_i, 1e-12)^-1/2``, the degrees counted
+    over the kept edges (``keep`` 0/1, in the edges' order) by ``bags`` in
+    a fixed order: MMGCL's dropped views and DDRec's filtered layers, whose
+    reference clamps the product of the degrees where ``masked_edge_weights``
+    adds eps to each."""
+    keep = keep.to(torch.float32)
+    du = bags.users.sum(keep.new_ones((num_item, 1)), keep)[:, 0]
+    di = bags.items.sum(keep.new_ones((num_user, 1)), keep)[:, 0]
+    return keep * torch.rsqrt(torch.clamp(du[edge_u] * di[edge_i], min=1e-12))
 
 
 def edge_propagate(edge_u: torch.Tensor, edge_i: torch.Tensor, w: torch.Tensor,

@@ -69,3 +69,14 @@ def build_knn_graph(features: torch.Tensor, topk: int = 10, norm: str = "sym",
     else:
         w = vals / (torch.sum(vals, dim=1, keepdim=True) + 1e-12)
     return ELLGraph(idx, w.to(torch.float32))
+
+
+def mixed_knn_graph(v_feat: torch.Tensor, t_feat: torch.Tensor, k: int,
+                    image_weight: float) -> ELLGraph:
+    """The visual and the textual kNN graphs ("ref_laplacian": weights 1/k)
+    side by side, weighted ``image_weight`` and 1 - ``image_weight``: MENTOR's
+    and DDRec's multimodal item graph, one propagation a gather of 2k rows."""
+    gv = build_knn_graph(v_feat, k, norm="ref_laplacian")
+    gt = build_knn_graph(t_feat, k, norm="ref_laplacian")
+    return ELLGraph(torch.cat([gv.indices, gt.indices], 1),
+                    torch.cat([image_weight * gv.weights, (1 - image_weight) * gt.weights], 1))

@@ -21,6 +21,7 @@ from chaorec_tpu_torch.models.bpr import BPRMF
 from chaorec_tpu_torch.models.bspm import BSPM
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
 from chaorec_tpu_torch.models.dccf import DCCF
+from chaorec_tpu_torch.models.ddrec import DDRec
 from chaorec_tpu_torch.models.dgcf import DGCF
 from chaorec_tpu_torch.models.dhcf import DHCF
 from chaorec_tpu_torch.models.diffrec import DiffRec
@@ -32,16 +33,22 @@ from chaorec_tpu_torch.models.grade import Grade
 from chaorec_tpu_torch.models.graphaug import GraphAug
 from chaorec_tpu_torch.models.hccf import HCCF
 from chaorec_tpu_torch.models.layergcn import LayerGCN
+from chaorec_tpu_torch.models.lgmrec import LGMRec
 from chaorec_tpu_torch.models.lightgcl import LightGCL
 from chaorec_tpu_torch.models.lightgcn import LightGCN
 from chaorec_tpu_torch.models.lightgode import LightGODE
 from chaorec_tpu_torch.models.macridvae import MacridVAE
 from chaorec_tpu_torch.models.mcln import MCLN
+from chaorec_tpu_torch.models.mentor import MENTOR
 from chaorec_tpu_torch.models.mgat import MGAT
 from chaorec_tpu_torch.models.mgcl import MGCL
+from chaorec_tpu_torch.models.mmgcl import MMGCL
+from chaorec_tpu_torch.models.mmgcn import MMGCN
 from chaorec_tpu_torch.models.multvae import MultVAE
+from chaorec_tpu_torch.models.mvgae import MVGAE
 from chaorec_tpu_torch.models.ncl import NCL
 from chaorec_tpu_torch.models.ngcf import NGCF
+from chaorec_tpu_torch.models.powerec import POWERec
 from chaorec_tpu_torch.models.selfcf import SelfCF
 from chaorec_tpu_torch.models.sgl import SGL
 from chaorec_tpu_torch.models.simgcl import SimGCL
@@ -383,3 +390,68 @@ def _mgcl(cfg: Config, ds: RecDataset, device: torch.device) -> MGCL:
     v, t = _feats(ds, device)
     return MGCL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
                 cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha)
+
+
+@register_model("MMGCL")
+def _mmgcl(cfg: Config, ds: RecDataset, device: torch.device) -> MMGCL:
+    # main.py:297-298: MMGCL(..., dim_E, reg_weight, n_layers, ssl_alpha, ssl_temp,
+    #   dropout, device)
+    v, t = _feats(ds, device)
+    return MMGCL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                 cfg.reg_weight, cfg.n_layers, cfg.ssl_alpha, cfg.ssl_temp, cfg.dropout)
+
+
+@register_model("LGMRec")
+def _lgmrec(cfg: Config, ds: RecDataset, device: torch.device) -> LGMRec:
+    # main.py:342-343: LGMRec(..., dim_E, reg_weight, n_layers, ssl_alpha, device)
+    v, t = _feats(ds, device)
+    return LGMRec(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                  cfg.reg_weight, cfg.n_layers, cfg.ssl_alpha)
+
+
+@register_model("MMGCN")
+def _mmgcn(cfg: Config, ds: RecDataset, device: torch.device) -> MMGCN:
+    # main.py:261-263: MMGCN(..., dim_E, reg_weight, aggr_mode, 'False', True, device);
+    # the frozen tensors are drawn from seed + 21, as the JAX builder's
+    # PRNGKey(seed + 21)
+    v, t = _feats(ds, device)
+    return MMGCN(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                 cfg.reg_weight, cfg.seed)
+
+
+@register_model("MVGAE")
+def _mvgae(cfg: Config, ds: RecDataset, device: torch.device) -> MVGAE:
+    # main.py:321-322: MVGAE(..., dim_E, reg_weight, n_layers, device); the frozen
+    # tensors are drawn from seed + 31, as the JAX builder's PRNGKey(seed + 31)
+    v, t = _feats(ds, device)
+    return MVGAE(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                 cfg.reg_weight, cfg.n_layers, cfg.seed)
+
+
+@register_model("POWERec")
+def _powerec(cfg: Config, ds: RecDataset, device: torch.device) -> POWERec:
+    # main.py:318-320: POWERec(..., dim_E, reg_weight, n_layers, prompt_num, neg_weight,
+    #   dropout, device)
+    v, t = _feats(ds, device)
+    return POWERec(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                   cfg.reg_weight, cfg.n_layers, cfg.prompt_num, cfg.neg_weight, cfg.dropout)
+
+
+@register_model("MENTOR")
+def _mentor(cfg: Config, ds: RecDataset, device: torch.device) -> MENTOR:
+    # main.py:346-348: MENTOR(..., dim_E, mm_layers, reg_weight, ssl_temp, dropout,
+    #   align_weight, mask_weight_g, mask_weight_f, device)
+    v, t = _feats(ds, device)
+    return MENTOR(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                  cfg.mm_layers, cfg.reg_weight, cfg.ssl_temp, cfg.dropout, cfg.align_weight,
+                  cfg.mask_weight_g, cfg.mask_weight_f)
+
+
+@register_model("DDRec")
+def _ddrec(cfg: Config, ds: RecDataset, device: torch.device) -> DDRec:
+    # main.py:299-301: DDRec(..., dim_E, feature_embedding, reg_weight, n_layers, ssl_temp,
+    #   ssl_alpha, threshold, aggr_mode, device)
+    v, t = _feats(ds, device)
+    return DDRec(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
+                 cfg.feature_embed, cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha,
+                 cfg.threshold)

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from chaorec_tpu_torch.graphs.dropout import masked_dense_r
-from chaorec_tpu_torch.graphs.knn import ELLGraph, build_knn_graph, gather_weighted_sum
+from chaorec_tpu_torch.graphs.knn import gather_weighted_sum, mixed_knn_graph
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
 from chaorec_tpu_torch.ops.init import torch_linear_init, xavier_uniform
@@ -72,12 +72,7 @@ class FREEDOM(RecModel):
         self.mm_image_weight = mm_image_weight
         self._v_feat_init = v_feat
         self._t_feat_init = t_feat
-        gv = build_knn_graph(v_feat, ii_topk, norm="ref_laplacian")
-        gt = build_knn_graph(t_feat, ii_topk, norm="ref_laplacian")
-        self.mm_graph = ELLGraph(
-            torch.cat([gv.indices, gt.indices], dim=1),
-            torch.cat([mm_image_weight * gv.weights, (1.0 - mm_image_weight) * gt.weights], dim=1),
-        )
+        self.mm_graph = mixed_knn_graph(v_feat, t_feat, ii_topk, mm_image_weight)
         self.masked_r = graph.dense_r if dropout > 0.0 else 0.5 * graph.dense_r
         self._edge_u = graph.u_by_u
         self._edge_i = graph.i_by_u

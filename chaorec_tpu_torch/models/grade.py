@@ -45,7 +45,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from chaorec_tpu_torch.graphs.knn import ELLGraph, build_knn_graph
+from chaorec_tpu_torch.graphs.knn import mixed_knn_graph
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph
 from chaorec_tpu_torch.models.adagcl import (MultiOptimizerTrainer, graphcl, kept_edges,
                                              prefixed, vgae_edge_prob, vgae_heads, vgae_loss)
@@ -79,13 +79,8 @@ class Grade(RecModel):
         self.ssl_temp2 = ssl_temp2
         self.noise_alpha = noise_alpha
         self.v_feat, self.t_feat = v_feat, t_feat  # frozen
-        k = min(self.knn_k, num_item)
-        gv = build_knn_graph(v_feat, k, norm="ref_laplacian")
-        gt = build_knn_graph(t_feat, k, norm="ref_laplacian")
-        self.mm_graph = ELLGraph(
-            torch.cat([gv.indices, gt.indices], 1),
-            torch.cat([self.mm_image_weight * gv.weights,
-                       (1 - self.mm_image_weight) * gt.weights], 1))
+        self.mm_graph = mixed_knn_graph(v_feat, t_feat, min(self.knn_k, num_item),
+                                        self.mm_image_weight)
         self.n_nodes = n = num_user + num_item
         g = graph
         self.src = torch.cat([g.u_by_u, g.i_by_u + num_user])

@@ -6,7 +6,9 @@ lt_count)`` or a single state array such as DGCF's routing scores into
 tensors on ``device``; ``to_numpy`` goes back. A model initialised in one
 package then computes the same thing in both. ``clone_to`` copies params or
 state to a device (the trainer's host copy of the best epoch, and back to
-the card for export). Dicts, tuples and lists are walked; their structure
+the card for export). ``load_frozen`` puts another package's frozen
+construction-time tensors (MMGCN's and MVGAE's, which their builders draw
+from a seed and no optimizer steps) in place of a model's own. Dicts, tuples and lists are walked; their structure
 is kept. bf16 leaves (``--relaxed_precision bf16`` tables) keep their dtype
 and bits.
 """
@@ -55,3 +57,18 @@ def clone_to(tree: Any, device: torch.device | str) -> Any:
     if tree is None:
         return None
     return tree.detach().to(device, copy=True)
+
+
+def load_frozen(model: Any, tensors: Any) -> None:
+    """Set each of ``model.frozen`` (the names of its frozen construction-time
+    attributes) from ``tensors`` ({name: array or tensor}, e.g. the JAX
+    model's attributes of those names), float32 on the model's device; each
+    keeps its shape."""
+    if set(tensors) != set(model.frozen):
+        raise ValueError(f"{model.name} freezes {sorted(model.frozen)}, given {sorted(tensors)}")
+    for name in model.frozen:
+        t = from_numpy(tensors[name], model.device).to(torch.float32)
+        if t.shape != getattr(model, name).shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the model's "
+                             f"{tuple(getattr(model, name).shape)}")
+        setattr(model, name, t)

@@ -68,7 +68,19 @@ published width with random weights from ``--seed``:
   SLMRec (1 layer on the halved operator, the FAC tasks), VBPR (its raw
   4096-wide visual table trained), BM3 (2 layers, dropout targets) and
   MGCL (2 layers, a user table a modality), MGCL's embeddings exported and
-  served. No kernel lies on the four towers' path.
+  served. No kernel lies on the four towers' path;
+- the rest of the multimodal towers on the standard trainer, each at its
+  Model_YAML file's first combo on the same beauty-sized set: MMGCL (1
+  layer, an edge-dropout and a modality-masking view a step), LGMRec (3
+  layers, frozen features, a Gumbel-softmax hypergraph of 4 edges), MMGCN
+  (4 rounds a modality on the self-loop R, the visual tower 256 wide, the
+  textual one 384 wide first; frozen id and preference tables), MVGAE (2
+  rounds, a product of experts, learning rate 0.1; frozen tables), POWERec
+  (three 4-layer prompt towers on an R pruned each epoch), MENTOR (seven
+  2-layer towers, the InfoNCE over the full (U x U) and (I x I) tables)
+  and DDRec (3 layers filtered by similarity, its state the previous
+  step's items; exported with that state and served). No kernel lies on
+  their path.
 
 Phases, each printing its own lines:
 
@@ -188,7 +200,7 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the 33 trained models twice from a fresh trainer on one
+34. determinism  each of the 40 trained models twice from a fresh trainer on one
             seed at the path's shapes (CF_Diff and DiffRec one epoch, the
             others 20 steps), then an evaluation: equal loss bits and equal
             rank lists, one JSON line per model with both runs' seconds;
@@ -266,6 +278,25 @@ Phases, each printing its own lines:
             over one step of each of the six at the beauty-sized set, peak
             memory; the seconds phases 43-47 and the six's determinism runs
             added
+48. towers2 MMGCL, LGMRec, MMGCN, MVGAE, POWERec, MENTOR and DDRec cli.run
+            at their first combo, 2 epochs each (no kernel launch
+            expected); MMGCN's and MVGAE's frozen tensors bit-equal to a
+            fresh build's after training; DDRec's best epoch exported with
+            its state and served over HTTP
+49. tw2step one step of each of the seven on the card against the CPU on
+            phase 32's seeded set with features (float32 R, equal params,
+            batch, frozen tensors and draws; MENTOR and DDRec on the CPU's
+            kNN graph; POWERec on epoch 0's pruned R; the card held to the
+            CPU's side of every LeakyReLU, clamp, similarity cut, weakest
+            modality and noise sign: Kinks, Cuts), DDRec over two batches
+            (the second gated by the first's state): the loss, every
+            gradient and the new state; beside each, not a gate, how far
+            the CPU's own step moves from params nudged by 2^-24
+50. tw2profile device time by kernel group and idle share over one step of
+            each of the seven at the beauty-sized set, peak memory; MENTOR's
+            full-table InfoNCE (forward and backward at its (U, 2 dim_E) and
+            (I, 2 dim_E) shapes) timed alone, its share of MENTOR's step;
+            the seconds phases 48-50 and the seven's determinism runs added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -440,12 +471,17 @@ FAMILY2_STEP_BATCHES = 2  # phase 46 holds the card to the CPU over this many ba
 TOWER_MODELS = ("SLMRec", "VBPR", "BM3", "MGCL")
 TOWER_EPOCHS = 2
 TOWER_SERVED = "MGCL"  # exported and served: its embeddings are a plain forward
+# phases 48-50: the rest of the multimodal towers on the standard trainer (no
+# kernel), on the beauty-sized set with features; DDRec on its stateful branch
+TOWER2_MODELS = ("MMGCL", "LGMRec", "MMGCN", "MVGAE", "POWERec", "MENTOR", "DDRec")
+TOWER2_SERVED = "DDRec"  # exported with its state and served
+TOWER2_STATE_BATCHES = 2  # phase 49's DDRec steps: the second gated by the first's state
 # phase 46: a card optimizer step's params and moments against the float64
 # Adam step of the CPU's state with the card's own gradient (rounding only)
 ADAM_STEP_RTOL = 1e-5
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
               "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED + (
-              FAMILY2_MODELS + TOWER_MODELS)
+              FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS)
 USER_ROW_MODELS = ("CF_Diff", "DiffRec")
 DET_STEPS = 20
 
@@ -965,11 +1001,11 @@ def get_json(port: int, path: str):
         return json.load(r)
 
 
-def device_profile(phase: str, what: str, fn, out_path: str, groups=None) -> None:
+def device_profile(phase: str, what: str, fn, out_path: str, groups=None):
     """Wall time of ``fn`` unprofiled, then device time by kernel and the
     idle share over one profiled call; with ``groups`` ({label: name
     fragments}), also the device time of the kernels whose lowercased name
-    holds one of a group's fragments."""
+    holds one of a group's fragments. Returns (wall ms, device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1008,6 +1044,7 @@ def device_profile(phase: str, what: str, fn, out_path: str, groups=None) -> Non
         say(phase, f"{label}: {ms:.2f} ms, {100 * ms / busy_ms:.1f}% of device time")
     with open(out_path, "w") as fh:
         fh.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    return wall_ms, busy_ms
 
 
 def check_artifact(path: str, ds, snapshot: str):
@@ -2176,6 +2213,8 @@ def draws_step(model, params, state, batch, draws):
     """(loss, new state or None) of one step of an id-only model with its
     random draws given (``draws`` None: a model that draws nothing)."""
     if model.stateful:
+        if draws is None:  # DDRec: its state is all it carries
+            return model.loss_stateful(params, state, batch, None)
         return model.loss_stateful_with_draws(params, state, batch, draws)
     if hasattr(model, "loss_with_draws"):
         return model.loss_with_draws(params, batch, draws), None
@@ -2389,7 +2428,7 @@ def path_config(name: str, args):
     it: CF_Diff at MODEL_CONFIG on the baby-sized set, LightGCN at
     LIGHTGCN_CONFIG and the rest of its family at their Model_YAML file's
     first combo on the beauty-sized set, and so the id-only models and
-    phases 39-47's, every other model at its first combo on the
+    phases 39-50's, every other model at its first combo on the
     sports-sized set."""
     from chaorec_tpu_torch.config import Config
 
@@ -2399,7 +2438,8 @@ def path_config(name: str, args):
     if name == "LightGCN":
         return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
     ds = (LINEAR_DATASET if name in (LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
-                                     + FAMILY2_MODELS + TOWER_MODELS) else FREEDOM_DATASET)
+                                     + FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS)
+          else FREEDOM_DATASET)
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
 
@@ -2469,8 +2509,11 @@ def determinism_phase(args, device, datasets) -> dict:
 class Cuts:
     """The side of each clip bound (``torch.clamp``), hard cut
     (``models/graphaug.hard_cut``, the generated views' 0.5 cut
-    ``models/adagcl.kept_edges``) and k-means assignment
-    (``ops/kmeans._assign``) a step takes, recorded on one step and held
+    ``models/adagcl.kept_edges``, DDRec's similarity cut
+    ``models/ddrec.kept_by_sim``), k-means assignment
+    (``ops/kmeans._assign``), POWERec's weakest modality
+    (``models/powerec.weakest``) and MENTOR's noise sign
+    (``models/mentor.signs``) a step takes, recorded on one step and held
     to on another, as ``Kinks`` holds the ReLUs.
 
     GraphAug's view weights jump from 0 to above 0.2 at the cut, VGCL's
@@ -2488,11 +2531,12 @@ class Cuts:
 
     @contextlib.contextmanager
     def _patched(self, mode):
-        from chaorec_tpu_torch.models import adagcl, grade, graphaug
+        from chaorec_tpu_torch.models import adagcl, ddrec, grade, graphaug, mentor, powerec
         from chaorec_tpu_torch.ops import kmeans
 
         clamp, cut, assign = torch.clamp, graphaug.hard_cut, kmeans._assign
-        kept = adagcl.kept_edges
+        kept, by_sim, weakest, signs = (adagcl.kept_edges, ddrec.kept_by_sim, powerec.weakest,
+                                        mentor.signs)
         self.flips, self._next = 0, 0
         if mode == "record":
             self.sides = []
@@ -2525,11 +2569,16 @@ class Cuts:
                                              lambda rec: rec)
         adagcl.kept_edges = grade.kept_edges = lambda p: pinned(
             p >= 0.5, lambda: kept(p), lambda rec: rec.to(p.dtype))
+        ddrec.kept_by_sim = lambda sim, th: pinned(sim >= th, lambda: by_sim(sim, th),
+                                                   lambda rec: rec.to(torch.float32))
+        powerec.weakest = lambda x: pinned(weakest(x), lambda: weakest(x), lambda rec: rec)
+        mentor.signs = lambda x: pinned(signs(x), lambda: signs(x), lambda rec: rec)
         try:
             yield self
         finally:
             torch.clamp, graphaug.hard_cut, kmeans._assign = clamp, cut, assign
             adagcl.kept_edges = grade.kept_edges = kept
+            ddrec.kept_by_sim, powerec.weakest, mentor.signs = by_sim, weakest, signs
         check(mode == "record" or self._next == len(self.sides),
               f"a step made {self._next} pinned calls, its record {len(self.sides)}")
 
@@ -3356,6 +3405,177 @@ def family2_phases(args, device, ds) -> tuple:
     return time.perf_counter() - t_start, k4_runs, k4ag
 
 
+def towers2_phases(args, device, ds) -> float:
+    """Phases 48-50: the seven towers' CLI runs on beauty (MMGCN's and
+    MVGAE's frozen tensors held, DDRec's export served), one step of each
+    on the card against the CPU (DDRec over TOWER2_STATE_BATCHES batches,
+    its state carried), and each one's step profile (MENTOR's full-table
+    InfoNCE timed alone); no kernel launch expected anywhere. Returns their
+    wall seconds."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches
+    from chaorec_tpu_torch.graphs.knn import ELLGraph
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.models.mentor import full_table_infonce
+    from chaorec_tpu_torch.params import load_frozen
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    t_start = time.perf_counter()
+    # 48. towers2: cli.run of each at its first combo, DDRec's export served
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in TOWER2_MODELS:
+            cfg, _ = path_config(name, args)
+            art = os.path.join(tmp, f"{name}.npz") if name == TOWER2_SERVED else ""
+            models, _ = linear_cli_run("towers2", device, ds, name, cfg.replace(
+                num_epoch=TOWER_EPOCHS, log_dir=args.out_dir, export_artifact=art),
+                first_combo(name)[1])
+            model = models[0]
+            check(model.device.type == device.type, f"{name} is not on the card")
+            if hasattr(model, "frozen"):
+                # a fresh build on the card draws them again from the seed
+                fresh = build_model(cfg, ds, device)
+                same = [bool(torch.equal(getattr(model, n), getattr(fresh, n)))
+                        for n in model.frozen]
+                say("towers2", f"{name}'s frozen {', '.join(model.frozen)} after "
+                    f"{TOWER_EPOCHS} epochs bit-equal to a fresh build's: {same}")
+                check(all(same), f"{name}: a frozen tensor moved")
+                del fresh
+            if art:
+                reset_counts()
+                check_embeddings_serving("towers2", art, ds, device, name)
+                check(not any(other_counts()), f"{name} serving launched {other_counts()}")
+            del models, model
+            torch.cuda.empty_cache()
+
+    # 49. tw2step: one step of each on the card against the CPU's -----------
+    # on phase 32's seeded set with features, float32 R, equal params, batch,
+    # frozen tensors and draws, the card held to the CPU's side of each kink
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE, features=True)
+    for name in TOWER2_MODELS:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+        given = []
+        if hasattr(cpu_model, "frozen"):  # each device's generator draws its own
+            load_frozen(card_model, {n: getattr(cpu_model, n) for n in cpu_model.frozen})
+            given.append("frozen tensors")
+        if hasattr(cpu_model, "mm_graph"):
+            # the card's own top-k may pick another neighbour where two nearly tie
+            knn_rows = int((card_model.mm_graph.indices.cpu() != cpu_model.mm_graph.indices)
+                           .any(1).sum())
+            card_model.mm_graph = ELLGraph(cpu_model.mm_graph.indices.to(device),
+                                           cpu_model.mm_graph.weights.to(device))
+            given.append(f"the CPU's kNN graph (rows the card's own build picked otherwise: "
+                         f"{knn_rows})")
+        trainer = Trainer(cpu_model, sds, cfg)
+        params, state = trainer.init_params(), trainer.model_state
+        if name == "POWERec":
+            cpu_model.pre_epoch(params, 0)
+            card_model.pre_epoch(params, 0)
+            cr, gr = cpu_model.masked_r, card_model.masked_r.cpu()
+            check(torch.equal(cr != 0, gr != 0) and torch.allclose(gr, cr, rtol=1e-6, atol=0),
+                  "POWERec: the card pruned another R")
+            given.append("epoch 0's pruned R (the same kept edges)")
+        batches = make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)
+        n_steps = TOWER2_STATE_BATCHES if cpu_model.stateful else 1
+        nudge_gen = torch.Generator().manual_seed(49)
+        for b in range(n_steps):
+            batch = trainer.bpr_batch(batches[b])
+            draws = (cpu_model.draws(trainer.generator, batch) if hasattr(cpu_model, "draws")
+                     else None)
+            kinks, cuts = Kinks(), Cuts()
+            c_loss, c_grads, c_state = device_step(cpu_model, params, state, batch, draws,
+                                                   pinned_sides(kinks.record(), cuts.record()))
+            reset_counts()
+            g_loss, g_grads, g_state = device_step(card_model, params, state, batch, draws,
+                                                   pinned_sides(kinks.replay(), cuts.replay()))
+            worst, loss_rel, others = worst_share(g_grads, c_grads), abs(g_loss - c_loss) / abs(
+                c_loss), other_counts()
+            # not a gate: how far the CPU's own step moves from params nudged
+            # by 2^-24 of each entry, on the same kink sides
+            nudged = {k: v.detach() * (1 + 2.0 ** -24 * torch.randn(v.shape, generator=nudge_gen))
+                      for k, v in params.items()}
+            _, n_grads, _ = device_step(cpu_model, nudged, state, batch, draws,
+                                        pinned_sides(kinks.replay(), cuts.replay()))
+            spread = worst_share(n_grads, c_grads)
+            state_msg, state_ok = "", True
+            if c_state is not None:
+                s_worst = worst_share(g_state, c_state)
+                state_ok = s_worst[0] <= 1.0
+                state_msg = (f"; new state (has_prev {float(c_state['0']):g}): worst "
+                             f"{s_worst[1]} at {s_worst[0]:.3f} of the same bound")
+                state = (c_state["0"], c_state["1"])  # the next batch from the CPU's
+            say("tw2step", f"one {name} step{f' (batch {b + 1} of {n_steps})' if n_steps > 1 else ''}"
+                f" of {batch.users.shape[0]} edges on a float32 R ({sds.num_user} x "
+                f"{sds.num_item}, dim {cfg.dim_E}, 4096- and 384-wide features), card vs CPU "
+                f"on the same params, batch, negatives{', draws' if draws else ''}"
+                f"{''.join(', ' + g for g in given)}: loss {g_loss:.7f} vs {c_loss:.7f} (rel "
+                f"{loss_rel:.2e}, bound {STEP_LOSS_RTOL:g}); worst gradient {worst[1]} at "
+                f"{worst[0]:.3f} of its bound (the CPU's own step from params nudged by 2^-24: "
+                f"{spread[1]} at {spread[0]:.3f}, not a gate){state_msg}; LeakyReLU units on the "
+                f"other side "
+                f"{kinks.flips}, clamp, cut, weakest and sign entries {cuts.flips}; kernel "
+                f"launches {others}")
+            check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0 and state_ok
+                  and not any(others), f"{name} card step disagrees")
+        del cpu_model, card_model, trainer
+    torch.cuda.empty_cache()
+
+    # 50. tw2profile: one step of each at beauty under the profiler ---------
+    groups = {"GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "index kernels (gathers, their scatters, index_add_, sorts)": (
+                  "index", "gather", "scatter", "sort", "radix"),
+              "embedding_bag (fixed-order segment sums)": ("embedding_bag", "embeddingbag"),
+              "reductions (norms, sums, softmax, logsumexp)": ("reduce_kernel", "softmax",
+                                                               "logsumexp"),
+              "elementwise": ("elementwise",)}
+    for name in TOWER2_MODELS:
+        cfg, _ = path_config(name, args)
+        model = build_model(cfg, ds, device)
+        trainer = Trainer(model, ds, cfg)
+        params = trainer.init_params()
+        opt = trainer.make_optimizer(params)
+        model.pre_epoch(params, 0)
+        batch = first_batch(trainer, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        wall_ms, busy_ms = device_profile(
+            "tw2profile", f"one {name} training step of {cfg.batch_size} edges at "
+            f"{LINEAR_DATASET} (forward, backward, Adam)",
+            lambda: trainer.train_step(params, opt, batch),
+            os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+            groups=groups)
+        others = other_counts()
+        say("tw2profile", f"{name} step peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel launches {others}")
+        check(not any(others), f"{name} step launched {others}")
+        if name == "MENTOR":
+            # its two full-table InfoNCE terms alone, forward and backward, at
+            # the step's shapes: the noisy reps are (U, 2 dim_E) and (I, 2 dim_E)
+            gen = torch.Generator(device).manual_seed(args.seed + 50)
+            reps = [torch.randn((n, 2 * cfg.dim_E), generator=gen, device=device,
+                                requires_grad=True)
+                    for n in (ds.num_user, ds.num_user, ds.num_item, ds.num_item)]
+
+            def infonce():
+                loss = (full_table_infonce(reps[0], reps[1], cfg.ssl_temp)
+                        + full_table_infonce(reps[2], reps[3], cfg.ssl_temp))
+                torch.autograd.grad(loss, reps)
+
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_ms(infonce, 5)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            say("tw2profile", f"MENTOR's full-table InfoNCE ({ds.num_user} x {ds.num_user} and "
+                f"{ds.num_item} x {ds.num_item} logits at width {2 * cfg.dim_E}), forward and "
+                f"backward: {ms:.2f} ms, {100 * ms / busy_ms:.1f}% of the step's device time "
+                f"({busy_ms:.1f} ms), {100 * ms / wall_ms:.1f}% of its wall ({wall_ms:.1f} ms); "
+                f"{peak:.2f} GiB of device memory above its inputs")
+            del reps
+        del model, trainer, params, opt
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t_start
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3740,6 +3960,11 @@ def main(argv=None) -> int:
     say("fam2profile", f"phases 43-47's share of the run: {family2_s:.1f} s, their "
         f"{len(FAMILY2_MODELS + TOWER_MODELS)} models' determinism runs {family2_det_s:.1f} s; "
         f"{family2_s + family2_det_s:.1f} s in all")
+    towers2_s = towers2_phases(args, device, bds)
+    towers2_det_s = sum(sum(det[n]["seconds"]) for n in TOWER2_MODELS)
+    say("tw2profile", f"phases 48-50's share of the run: {towers2_s:.1f} s, their "
+        f"{len(TOWER2_MODELS)} models' determinism runs {towers2_det_s:.1f} s; "
+        f"{towers2_s + towers2_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's

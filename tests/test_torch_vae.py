@@ -345,16 +345,16 @@ def _shapes(path):
     return [NUMBER.sub("#", m) for m in messages[start:]]
 
 
-def cli_logs_match(ds, monkeypatch, tmp_path, flags, export=False):
-    """One epoch of ``flags["Model"]`` at its Model_YAML file's first combo
-    through each package's cli.run: the same line shapes. Returns the
-    port's best metrics and its artifact's path (``export``)."""
+def cli_logs_match(ds, monkeypatch, tmp_path, flags, export=False, num_epoch=1):
+    """``num_epoch`` epochs of ``flags["Model"]`` at its Model_YAML file's
+    first combo through each package's cli.run: the same line shapes.
+    Returns the port's best metrics and its artifact's path (``export``)."""
     name = flags["Model"]
     monkeypatch.setattr(jcli, "data_load", lambda *a, **kw: ds)
     combo = next(grid_combinations(load_yaml_config(name)))
     grid = {k: [v] for k, v in combo.items()}
     grid["hyper_parameters"] = list(combo)
-    run_flags = dict(flags, data_path="tiny", num_epoch=1)
+    run_flags = dict(flags, data_path="tiny", num_epoch=num_epoch)
     art = str(tmp_path / f"{name}.npz") if export else ""
     root = logging.getLogger()
     handlers = list(root.handlers)
@@ -372,7 +372,7 @@ def cli_logs_match(ds, monkeypatch, tmp_path, flags, export=False):
     tlines = [line for line in _shapes(tmp_path / "torch" / f"{name}_tiny.log")
               if not line.startswith(("export_artifact", "serving artifact"))]
     assert tlines == jlines
-    assert sum(line == "Epoch #, Loss: #" for line in tlines) == 1
+    assert sum(line == "Epoch #, Loss: #" for line in tlines) == num_epoch
     assert sorted(best) == [5, 10, 20]
     assert all(np.isfinite(v) for m in best.values() for v in m.values())
     return best, art
