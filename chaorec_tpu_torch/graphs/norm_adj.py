@@ -11,7 +11,10 @@ user_emb``. Two paths behind one interface:
   bf16 products summed in float32, ``ops/mxu.bdot``), used while U * I is
   at most ``dense_threshold``;
 - segment: the edge list sorted by user and by item, gathered and summed
-  with ``index_add_``.
+  with ``index_add_``. At ``compute_dtype`` "bfloat16" the gathered input
+  is rounded to bf16 first (``round_bf16``: float32 weights times bf16
+  values, summed in float32, as the JAX package's ELL path casts its input
+  before the gather-sum); the input's gradient is not rounded.
 
 The JAX package's ELL layout is a TPU gather layout and is not ported.
 """
@@ -27,6 +30,25 @@ import torch
 from chaorec_tpu_torch.ops.mxu import bdot
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _RoundBf16(torch.autograd.Function):
+    """x rounded to bf16 (kept in float32) forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 in its own dtype; its gradient passes unrounded
+    (the JAX package's cast before a gather-sum whose VJP returns the
+    float32 cotangent)."""
+    return _RoundBf16.apply(x)
 
 
 def build_adj(edges: np.ndarray, num_user: int, num_item: int, eps: float = 1e-7
@@ -59,7 +81,7 @@ class BipartiteGraph:
     num_user: int
     num_item: int
     use_dense: bool
-    compute_dtype: str  # "float32" or "bfloat16": the dense R's dtype
+    compute_dtype: str  # "float32" or "bfloat16": the dense R's dtype, the segment path's inputs
     u_by_u: torch.Tensor  # (E,) user ids, ascending
     i_by_u: torch.Tensor  # (E,) item ids aligned with u_by_u
     w_by_u: torch.Tensor  # (E,) float32 edge weights aligned with u_by_u
@@ -83,14 +105,20 @@ class BipartiteGraph:
         if self.use_dense:
             return bdot(self.dense_r, item_x.to(self.dense_r.dtype))
         out = item_x.new_zeros((self.num_user, item_x.shape[1]), dtype=torch.float32)
-        return out.index_add_(0, self.u_by_u, self.w_by_u[:, None] * item_x[self.i_by_u])
+        msgs = self.w_by_u[:, None] * self._cast(item_x)[self.i_by_u]
+        return out.index_add_(0, self.u_by_u, msgs)
 
     def apply_rt(self, user_x: torch.Tensor) -> torch.Tensor:
         """R^T @ user_x -> (I, D), one item-side aggregation."""
         if self.use_dense:
             return bdot(self.dense_r.t(), user_x.to(self.dense_r.dtype))
         out = user_x.new_zeros((self.num_item, user_x.shape[1]), dtype=torch.float32)
-        return out.index_add_(0, self.i_by_i, self.w_by_i[:, None] * user_x[self.u_by_i])
+        msgs = self.w_by_i[:, None] * self._cast(user_x)[self.u_by_i]
+        return out.index_add_(0, self.i_by_i, msgs)
+
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        """The segment path's input: rounded to bf16 at "bfloat16"."""
+        return round_bf16(x) if self.compute_dtype == "bfloat16" else x
 
 
 def build_norm_adj(edges: np.ndarray, num_user: int, num_item: int,

@@ -31,6 +31,8 @@ from chaorec_tpu_torch.models.freedom import FREEDOM
 from chaorec_tpu_torch.models.gformer import GFormer
 from chaorec_tpu_torch.models.grade import Grade
 from chaorec_tpu_torch.models.graphaug import GraphAug
+from chaorec_tpu_torch.models.grcn import GRCN
+from chaorec_tpu_torch.models.gume import GUME
 from chaorec_tpu_torch.models.hccf import HCCF
 from chaorec_tpu_torch.models.layergcn import LayerGCN
 from chaorec_tpu_torch.models.lgmrec import LGMRec
@@ -42,6 +44,7 @@ from chaorec_tpu_torch.models.mcln import MCLN
 from chaorec_tpu_torch.models.mentor import MENTOR
 from chaorec_tpu_torch.models.mgat import MGAT
 from chaorec_tpu_torch.models.mgcl import MGCL
+from chaorec_tpu_torch.models.mgcn import MGCN
 from chaorec_tpu_torch.models.mmgcl import MMGCL
 from chaorec_tpu_torch.models.mmgcn import MMGCN
 from chaorec_tpu_torch.models.multvae import MultVAE
@@ -53,6 +56,7 @@ from chaorec_tpu_torch.models.selfcf import SelfCF
 from chaorec_tpu_torch.models.sgl import SGL
 from chaorec_tpu_torch.models.simgcl import SimGCL
 from chaorec_tpu_torch.models.slmrec import SLMRec
+from chaorec_tpu_torch.models.smore import SMORE
 from chaorec_tpu_torch.models.vbpr import VBPR
 from chaorec_tpu_torch.models.vgcl import VGCL
 from chaorec_tpu_torch.models.xsimgcl import XSimGCL
@@ -61,11 +65,13 @@ from chaorec_tpu_torch.ops.linear_prop import (CombinedLinearOp, build_weighted_
 from chaorec_tpu_torch.ops.svd import randomized_svd
 
 
-def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device) -> BipartiteGraph:
-    """The normalized user-item graph: dense while U * I is at most
-    ``cfg.dense_prop_threshold``, R in ``cfg.graph_compute_dtype``."""
+def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device,
+              use_dense: Optional[bool] = None) -> BipartiteGraph:
+    """The normalized user-item graph in ``cfg.graph_compute_dtype``: dense
+    while U * I is at most ``cfg.dense_prop_threshold``, unless ``use_dense``
+    says otherwise (False: the JAX builders' ``force_sparse``)."""
     return build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device,
-                          dense_threshold=cfg.dense_prop_threshold,
+                          use_dense=use_dense, dense_threshold=cfg.dense_prop_threshold,
                           compute_dtype=cfg.graph_compute_dtype)
 
 
@@ -455,3 +461,41 @@ def _ddrec(cfg: Config, ds: RecDataset, device: torch.device) -> DDRec:
     return DDRec(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), v, t, cfg.dim_E,
                  cfg.feature_embed, cfg.reg_weight, cfg.n_layers, cfg.ssl_temp, cfg.ssl_alpha,
                  cfg.threshold)
+
+
+@register_model("MGCN")
+def _mgcn(cfg: Config, ds: RecDataset, device: torch.device) -> MGCN:
+    # main.py:316-317: MGCN(..., dim_E, reg_weight, n_layers, aggr_mode, ssl_temp, ssl_alpha,
+    #   device): n_layers and n_ui_layers are fixed inside; the U-I graph is sparse
+    v, t = _feats(ds, device)
+    return MGCN(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device, use_dense=False), v, t,
+                cfg.dim_E, cfg.reg_weight, cfg.ssl_temp, cfg.ssl_alpha)
+
+
+@register_model("SMORE")
+def _smore(cfg: Config, ds: RecDataset, device: torch.device) -> SMORE:
+    # main.py:377-378: SMORE(..., dim_E, reg_weight, n_ui_layers, ii_topk, dropout, dataset,
+    #   device); the U-I graph is sparse
+    v, t = _feats(ds, device)
+    return SMORE(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device, use_dense=False), v, t,
+                 cfg.dim_E, cfg.reg_weight, cfg.n_ui_layers, cfg.ii_topk, cfg.dropout)
+
+
+@register_model("GUME")
+def _gume(cfg: Config, ds: RecDataset, device: torch.device) -> GUME:
+    # main.py:379-380: GUME(..., dim_E, n_layers, n_ui_layers, um_loss, vt_loss, dataset,
+    #   device)
+    v, t = _feats(ds, device)
+    return GUME(ds.num_user, ds.num_item, ds.train_edges, v, t, cfg.dim_E, cfg.n_layers,
+                cfg.n_ui_layers, cfg.um_loss, cfg.vt_loss,
+                compute_dtype=cfg.graph_compute_dtype, device=device)
+
+
+@register_model("GRCN")
+def _grcn(cfg: Config, ds: RecDataset, device: torch.device) -> GRCN:
+    # main.py:271-273: GRCN(..., dim_E, feature_embedding, reg_weight, dropout, n_iterations,
+    #   aggr_mode, device): the routing n_iterations changes nothing (models/grcn.py); GRCN
+    #   reads the edge list only, so its graph has no dense R
+    v, t = _feats(ds, device)
+    return GRCN(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device, use_dense=False), v, t,
+                cfg.dim_E, cfg.feature_embed, cfg.reg_weight, cfg.dropout)

@@ -23,9 +23,15 @@ form (the gradient is a gather), and ``bag_gather`` the transposed twin (a
 gather whose gradient is a bag sum). SGL's views (``graphs/dropout.py``) and
 the edge softmax's sums (``ops/edge_softmax.py``) use it.
 
-The ELL matrices (``EllMatrix``, ``EllPattern``), the grouped primitives
-and ``seg_edge_weighted_sum`` are TPU gather layouts or come with their
-models (ROADMAP).
+``EdgeMatrix`` and ``EdgePattern`` are the port's counterparts of the JAX
+package's ``EllMatrix`` and ``EllPattern``: the same sums over a fixed COO
+list, ``EdgeMatrix`` with weights fixed at build (GUME's float32 graphs),
+``EdgePattern`` with weights given at each call (GRCN's attention and edge
+weights). Both sum with ``SegmentBags`` in each orientation, so the
+backward of one orientation is the other's forward, in a fixed order. The
+ELL + overflow bucket layout, ``auto_cap`` and the lane-packed (grouped)
+forms are TPU gather layouts and are not ported; ``seg_edge_weighted_sum``
+comes with MHRec (ROADMAP).
 """
 
 from __future__ import annotations
@@ -218,3 +224,139 @@ def bag_gather(x: torch.Tensor, idx: torch.Tensor, bags: SegmentBags) -> torch.T
     ``segment_bags(idx, arange(E), x.shape[0])``, ``bag_sum``'s transposed
     twin."""
     return _BagGather.apply(x, idx, bags)
+
+
+class _EdgeMatVec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, fwd, bwd):
+        ctx.save_for_backward(w)
+        ctx.bwd, ctx.dtype = bwd, x.dtype
+        return fwd.sum(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return ctx.bwd.sum(g, w).to(ctx.dtype), None, None, None
+
+
+@dataclass(frozen=True)
+class EdgeMatrix:
+    """A fixed (num_rows, num_cols) sparse matrix A of float32 weights ``w``
+    over a COO list (``EllMatrix``): ``matvec(x)`` is A @ x, ``t.matvec(x)``
+    is A^T @ x, each summed per row in a fixed order, and the gradient of x
+    is the other orientation's sum of the cotangent. The weights get no
+    gradient."""
+
+    num_rows: int
+    num_cols: int
+    w: torch.Tensor          # (E,) float32, in the COO list's order
+    by_row: SegmentBags      # segments: rows, sources: cols
+    by_col: SegmentBags      # segments: cols, sources: rows
+
+    @staticmethod
+    def from_coo(rows: np.ndarray, cols: np.ndarray, w: np.ndarray, num_rows: int,
+                 num_cols: int, device: torch.device | str) -> "EdgeMatrix":
+        rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+        return EdgeMatrix(num_rows, num_cols,
+                          torch.from_numpy(np.asarray(w, np.float32)).to(device),
+                          segment_bags(rows, cols, num_rows, device),
+                          segment_bags(cols, rows, num_cols, device))
+
+    @property
+    def t(self) -> "EdgeMatrix":
+        return EdgeMatrix(self.num_cols, self.num_rows, self.w, self.by_col, self.by_row)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x for x (num_cols, D): (num_rows, D) float32."""
+        return _EdgeMatVec.apply(x, self.w, self.by_row, self.by_col)
+
+
+class _PatternMatVec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, x, pat):
+        ctx.save_for_backward(w, x)
+        ctx.pat = pat
+        return pat.by_row.sum(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, x = ctx.saved_tensors
+        pat = ctx.pat
+        gw = gx = None
+        if ctx.needs_input_grad[0]:
+            gw = torch.sum(g[pat.rows] * x[pat.cols].float(), dim=1).to(w.dtype)
+        if ctx.needs_input_grad[1]:
+            gx = pat.by_col.sum(g, w).to(x.dtype)
+        return gw, gx, None
+
+
+class _PairInner(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pat):
+        ctx.save_for_backward(x)
+        ctx.pat = pat
+        return torch.sum(x[pat.rows] * x[pat.cols], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        pat = ctx.pat
+        return (pat.by_row.sum(x, g) + pat.by_col.sum(x, g)).to(x.dtype), None
+
+
+@dataclass(frozen=True)
+class EdgePattern:
+    """A fixed COO pattern (rows[e], cols[e]) over (num_rows, num_cols) whose
+    edge weights are given at each call (``EllPattern``): the GAT family's
+    per-step attention. Every sum is per row or per column in a fixed
+    order, forward and backward:
+
+    - ``weighted_matvec(w, x)[r] = sum_{e: rows[e] = r} w[e] x[cols[e]]``,
+      differentiable in w and x;
+    - ``weighted_rowsum(w)[r] = sum_{e: rows[e] = r} w[e]``;
+    - ``pair_inner(x)[e] = <x[rows[e]], x[cols[e]]>`` (square patterns);
+    - ``row_gather(v)`` and ``col_gather(v)``: ``v[rows]`` and ``v[cols]``
+      whose gradients are those fixed-order sums, not scatter-adds."""
+
+    num_rows: int
+    num_cols: int
+    rows: torch.Tensor       # (E,) int64
+    cols: torch.Tensor       # (E,) int64
+    by_row: SegmentBags      # segments: rows, sources: cols
+    by_col: SegmentBags      # segments: cols, sources: rows
+    row_bags: SegmentBags    # segments: rows, sources: the edges
+    col_bags: SegmentBags    # segments: cols, sources: the edges
+
+    @staticmethod
+    def from_coo(rows: np.ndarray, cols: np.ndarray, num_rows: int, num_cols: int,
+                 device: torch.device | str) -> "EdgePattern":
+        rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+        edges = np.arange(rows.shape[0])
+
+        def as_t(a):
+            return torch.from_numpy(a).to(device)
+
+        return EdgePattern(num_rows, num_cols, as_t(rows), as_t(cols),
+                           segment_bags(rows, cols, num_rows, device),
+                           segment_bags(cols, rows, num_cols, device),
+                           segment_bags(rows, edges, num_rows, device),
+                           segment_bags(cols, edges, num_cols, device))
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.rows.shape[0])
+
+    def weighted_matvec(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return _PatternMatVec.apply(w, x, self)
+
+    def weighted_rowsum(self, w: torch.Tensor) -> torch.Tensor:
+        return bag_sum(w, self.rows, self.row_bags)
+
+    def pair_inner(self, x: torch.Tensor) -> torch.Tensor:
+        return _PairInner.apply(x, self)
+
+    def row_gather(self, v: torch.Tensor) -> torch.Tensor:
+        return bag_gather(v, self.rows, self.row_bags)
+
+    def col_gather(self, v: torch.Tensor) -> torch.Tensor:
+        return bag_gather(v, self.cols, self.col_bags)

@@ -80,7 +80,16 @@ published width with random weights from ``--seed``:
   2-layer towers, the InfoNCE over the full (U x U) and (I x I) tables)
   and DDRec (3 layers filtered by similarity, its state the previous
   step's items; exported with that state and served). No kernel lies on
-  their path.
+  their path;
+- the towers on the host kNN graphs and the fixed-topology edge sums, each
+  at its Model_YAML file's first combo on the same beauty-sized set: MGCN
+  (2 U-I layers on the sparse graph, its bf16-rounded inputs; trainable raw
+  features; sym-normalized 10-NN item graphs), SMORE (3 layers on the
+  sparse graph, the rfft spectral fusion, the fusion graph the maximum of
+  the two kNN graphs), GUME (3 layers over R, R^T and the I-I intersection
+  graph, dense bf16 products, 192 wide) and GRCN (the doubled edge list's
+  attention towers and the gated id convolutions, 10% edge dropout; its
+  192-wide embeddings exported and served). No kernel lies on their path.
 
 Phases, each printing its own lines:
 
@@ -200,7 +209,7 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the 40 trained models twice from a fresh trainer on one
+34. determinism  each of the 44 trained models twice from a fresh trainer on one
             seed at the path's shapes (CF_Diff and DiffRec one epoch, the
             others 20 steps), then an evaluation: equal loss bits and equal
             rank lists, one JSON line per model with both runs' seconds;
@@ -297,6 +306,24 @@ Phases, each printing its own lines:
             full-table InfoNCE (forward and backward at its (U, 2 dim_E) and
             (I, 2 dim_E) shapes) timed alone, its share of MENTOR's step;
             the seconds phases 48-50 and the seven's determinism runs added
+51. towers3 MGCN, SMORE, GUME and GRCN cli.run at their first combo, 2
+            epochs each (no kernel launch expected); each build's seconds
+            and peak memory (GUME's: its host kNN over the full similarity,
+            its dense bf16 R, I-I and kNN graphs' bytes); GRCN's best epoch
+            exported and served over HTTP
+52. tw3step one step of each of the four on the card against the CPU on
+            phase 32's seeded set with features (float32 graphs, equal
+            params, batch and draws; the CPU's kNN graphs; the card held to
+            the CPU's side of every LeakyReLU and ReLU, the 1e-16 clamp,
+            GRCN's strongest modality, GUME's noise signs and absolute
+            gaps: Kinks, Cuts): the loss and every gradient; beside each,
+            not a gate, the CPU's own step's spread from params nudged by
+            2^-24
+53. tw3profile device time by kernel group and idle share over one step of
+            each of the four at the beauty-sized set, peak memory; GUME's
+            fp32 copies of its dense bf16 graphs in bdot's backward timed
+            alone, their share of its step; the seconds phases 51-53 and
+            the four's determinism runs added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -476,12 +503,16 @@ TOWER_SERVED = "MGCL"  # exported and served: its embeddings are a plain forward
 TOWER2_MODELS = ("MMGCL", "LGMRec", "MMGCN", "MVGAE", "POWERec", "MENTOR", "DDRec")
 TOWER2_SERVED = "DDRec"  # exported with its state and served
 TOWER2_STATE_BATCHES = 2  # phase 49's DDRec steps: the second gated by the first's state
+# phases 51-53: the towers on the host kNN graphs and the fixed-topology edge
+# sums (no kernel), on the beauty-sized set with features
+TOWER3_MODELS = ("MGCN", "SMORE", "GUME", "GRCN")
+TOWER3_SERVED = "GRCN"  # exported and served: 192-wide embeddings without edge dropout
 # phase 46: a card optimizer step's params and moments against the float64
 # Adam step of the CPU's state with the card's own gradient (rounding only)
 ADAM_STEP_RTOL = 1e-5
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
               "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED + (
-              FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS)
+              FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS + TOWER3_MODELS)
 USER_ROW_MODELS = ("CF_Diff", "DiffRec")
 DET_STEPS = 20
 
@@ -1859,13 +1890,13 @@ def seg_phases(args, device, fds) -> dict:
 
 
 class BuildProbe:
-    """While active, records each model ``cli.run`` builds, and times each
-    combined linear operator the builders make (the device synchronized at
-    both ends) with the build's peak device memory above what was allocated
-    before it."""
+    """While active, records each model ``cli.run`` builds with its build's
+    seconds and peak device memory above what was allocated before it
+    (``builds``), and times each combined linear operator the builders make
+    (the device synchronized at both ends) with its peak alike."""
 
     def __init__(self):
-        self.models, self.ops = [], []
+        self.models, self.ops, self.builds = [], [], []
 
     def __enter__(self):
         from chaorec_tpu_torch import cli
@@ -1876,7 +1907,14 @@ class BuildProbe:
         build_op = self.build_op = builders.build_weighted_op
 
         def recorded(cfg, dataset, device):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             model = build_model(cfg, dataset, device)
+            torch.cuda.synchronize()
+            self.builds.append(dict(seconds=time.perf_counter() - t0, peak_gib=(
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30))
             self.models.append(model)
             return model
 
@@ -2428,7 +2466,7 @@ def path_config(name: str, args):
     it: CF_Diff at MODEL_CONFIG on the baby-sized set, LightGCN at
     LIGHTGCN_CONFIG and the rest of its family at their Model_YAML file's
     first combo on the beauty-sized set, and so the id-only models and
-    phases 39-50's, every other model at its first combo on the
+    phases 39-53's, every other model at its first combo on the
     sports-sized set."""
     from chaorec_tpu_torch.config import Config
 
@@ -2438,7 +2476,8 @@ def path_config(name: str, args):
     if name == "LightGCN":
         return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
     ds = (LINEAR_DATASET if name in (LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
-                                     + FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS)
+                                     + FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS
+                                     + TOWER3_MODELS)
           else FREEDOM_DATASET)
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
@@ -2512,8 +2551,10 @@ class Cuts:
     ``models/adagcl.kept_edges``, DDRec's similarity cut
     ``models/ddrec.kept_by_sim``), k-means assignment
     (``ops/kmeans._assign``), POWERec's weakest modality
-    (``models/powerec.weakest``) and MENTOR's noise sign
-    (``models/mentor.signs``) a step takes, recorded on one step and held
+    (``models/powerec.weakest``), MENTOR's and GUME's noise signs
+    (``models/mentor.signs``, ``models/gume.signs``), GUME's absolute gaps
+    (``models/gume.gap``) and GRCN's strongest modality
+    (``models/grcn.modal_max``) a step takes, recorded on one step and held
     to on another, as ``Kinks`` holds the ReLUs.
 
     GraphAug's view weights jump from 0 to above 0.2 at the cut, VGCL's
@@ -2531,12 +2572,14 @@ class Cuts:
 
     @contextlib.contextmanager
     def _patched(self, mode):
-        from chaorec_tpu_torch.models import adagcl, ddrec, grade, graphaug, mentor, powerec
+        from chaorec_tpu_torch.models import (adagcl, ddrec, grade, graphaug, grcn, gume, mentor,
+                                              powerec)
         from chaorec_tpu_torch.ops import kmeans
 
         clamp, cut, assign = torch.clamp, graphaug.hard_cut, kmeans._assign
         kept, by_sim, weakest, signs = (adagcl.kept_edges, ddrec.kept_by_sim, powerec.weakest,
                                         mentor.signs)
+        g_signs, g_gap, modal_max = gume.signs, gume.gap, grcn.modal_max
         self.flips, self._next = 0, 0
         if mode == "record":
             self.sides = []
@@ -2573,12 +2616,18 @@ class Cuts:
                                                    lambda rec: rec.to(torch.float32))
         powerec.weakest = lambda x: pinned(weakest(x), lambda: weakest(x), lambda rec: rec)
         mentor.signs = lambda x: pinned(signs(x), lambda: signs(x), lambda rec: rec)
+        gume.signs = lambda x: pinned(g_signs(x), lambda: g_signs(x), lambda rec: rec)
+        gume.gap = lambda a, b: pinned(torch.sign(a - b), lambda: g_gap(a, b),
+                                       lambda rec: (a - b) * rec)
+        grcn.modal_max = lambda x: pinned(torch.argmax(x, 1), lambda: modal_max(x),
+                                          lambda rec: x.gather(1, rec[:, None])[:, 0])
         try:
             yield self
         finally:
             torch.clamp, graphaug.hard_cut, kmeans._assign = clamp, cut, assign
             adagcl.kept_edges = grade.kept_edges = kept
             ddrec.kept_by_sim, powerec.weakest, mentor.signs = by_sim, weakest, signs
+            gume.signs, gume.gap, grcn.modal_max = g_signs, g_gap, modal_max
         check(mode == "record" or self._next == len(self.sides),
               f"a step made {self._next} pinned calls, its record {len(self.sides)}")
 
@@ -3576,6 +3625,167 @@ def towers2_phases(args, device, ds) -> float:
     return time.perf_counter() - t_start
 
 
+def towers3_phases(args, device, ds) -> float:
+    """Phases 51-53: the four towers' CLI runs on beauty (each build's
+    seconds and peak memory, GUME's host kNN and dense graphs, GRCN's export
+    served), one step of each on the card against the CPU, and each one's
+    step profile (GUME's fp32 copies of its bf16 graphs in bdot's backward
+    timed alone); no kernel launch expected anywhere. Returns their wall
+    seconds."""
+    from chaorec_tpu_torch.graphs.knn import ELLGraph
+    from chaorec_tpu_torch.models import build_model, gume
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    t_start = time.perf_counter()
+    # 51. towers3: cli.run of each at its first combo, GRCN's export served --
+    knn_s = []
+    knn_indices = gume.knn_indices
+
+    def timed_knn(feats, k):
+        t0 = time.perf_counter()
+        out = knn_indices(feats, k)
+        knn_s.append((feats.shape, time.perf_counter() - t0))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in TOWER3_MODELS:
+            cfg, _ = path_config(name, args)
+            art = os.path.join(tmp, f"{name}.npz") if name == TOWER3_SERVED else ""
+            probe = BuildProbe()
+            gume.knn_indices = timed_knn
+            try:
+                with probe:
+                    models, _ = linear_cli_run("towers3", device, ds, name, cfg.replace(
+                        num_epoch=TOWER_EPOCHS, log_dir=args.out_dir, export_artifact=art),
+                        first_combo(name)[1])
+            finally:
+                gume.knn_indices = knn_indices
+            model = models[0]
+            check(model.device.type == device.type, f"{name} is not on the card")
+            built = probe.builds[0]
+            say("towers3", f"{name} build: {built['seconds']:.3f} s, peak device memory "
+                f"{built['peak_gib']:.3f} GiB above what was allocated before it")
+            if name == "GUME":
+                dense = {n: getattr(model, n) for n in ("r_norm", "ii_norm", "image_adj",
+                                                         "text_adj")}
+                check(model.graph_bf16 and all(t.dtype == torch.bfloat16 for t in dense.values()),
+                      "GUME's graphs are not dense bf16 on the card")
+                say("towers3", "GUME's dense bf16 graphs: " + ", ".join(
+                    f"{n} {tuple(t.shape)} {t.numel() * 2 / 1e6:.1f} MB"
+                    for n, t in dense.items()) + "; its host kNN (numpy: the full similarity "
+                    "and its argsort) " + ", ".join(f"{shape[0]} x {shape[1]} features "
+                                                    f"{sec:.3f} s" for shape, sec in knn_s)
+                    + f"; I-I intersection edges {model.ii_rows.shape[0]}")
+            if art:
+                reset_counts()
+                check_embeddings_serving("towers3", art, ds, device, name)
+                check(not any(other_counts()), f"{name} serving launched {other_counts()}")
+            del models, model
+            torch.cuda.empty_cache()
+
+    # 52. tw3step: one step of each on the card against the CPU's -----------
+    # on phase 32's seeded set with features, float32 graphs, equal params,
+    # batch and draws, the CPU's kNN graphs, the card held to the CPU's side
+    # of each kink
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE, features=True)
+    for name in TOWER3_MODELS:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+        given = []
+        adjs = [a for a in ("image_adj", "text_adj", "fusion_adj") if hasattr(cpu_model, a)]
+        if adjs:
+            # the card's own top-k may pick another neighbour where two nearly tie
+            rows = sum(int((getattr(card_model, a).indices.cpu() != getattr(cpu_model, a).indices)
+                           .any(1).sum()) for a in adjs if a != "fusion_adj")
+            for a in adjs:
+                g = getattr(cpu_model, a)
+                setattr(card_model, a, ELLGraph(g.indices.to(device), g.weights.to(device)))
+            given.append(f"the CPU's {', '.join(adjs)} (rows the card's own build picked "
+                         f"otherwise: {rows})")
+        trainer = Trainer(cpu_model, sds, cfg)
+        params = trainer.init_params()
+        batch = first_batch(trainer, cfg)
+        draws = cpu_model.draws(trainer.generator, batch) if hasattr(cpu_model, "draws") else None
+        kinks, cuts = Kinks(), Cuts()
+        c_loss, c_grads, _ = device_step(cpu_model, params, None, batch, draws,
+                                         pinned_sides(kinks.record(), cuts.record()))
+        reset_counts()
+        g_loss, g_grads, _ = device_step(card_model, params, None, batch, draws,
+                                         pinned_sides(kinks.replay(), cuts.replay()))
+        worst, loss_rel, others = worst_share(g_grads, c_grads), abs(g_loss - c_loss) / abs(
+            c_loss), other_counts()
+        # not a gate: how far the CPU's own step moves from params nudged by
+        # 2^-24 of each entry, on the same kink sides
+        nudge_gen = torch.Generator().manual_seed(52)
+        nudged = {k: v.detach() * (1 + 2.0 ** -24 * torch.randn(v.shape, generator=nudge_gen))
+                  for k, v in params.items()}
+        _, n_grads, _ = device_step(cpu_model, nudged, None, batch, draws,
+                                    pinned_sides(kinks.replay(), cuts.replay()))
+        spread = worst_share(n_grads, c_grads)
+        say("tw3step", f"one {name} step of {batch.users.shape[0]} edges on float32 graphs "
+            f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}, 4096- and 384-wide features), "
+            f"card vs CPU on the same params, batch, negatives"
+            f"{', draws' if draws else ''}{''.join(', ' + g for g in given)}: loss "
+            f"{g_loss:.7f} vs {c_loss:.7f} (rel {loss_rel:.2e}, bound {STEP_LOSS_RTOL:g}); "
+            f"worst gradient {worst[1]} at {worst[0]:.3f} of its bound (the CPU's own step from "
+            f"params nudged by 2^-24: {spread[1]} at {spread[0]:.3f}, not a gate); ReLU and "
+            f"LeakyReLU units on the other side {kinks.flips}, clamp, modality, sign and gap "
+            f"entries {cuts.flips}; kernel launches {others}")
+        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0 and not any(others),
+              f"{name} card step disagrees")
+        del cpu_model, card_model, trainer
+    torch.cuda.empty_cache()
+
+    # 53. tw3profile: one step of each at beauty under the profiler ---------
+    groups = {"GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "copies (dtype casts: bdot's fp32 copies of bf16 graphs among them)": (
+                  "copy",),
+              "index kernels (gathers, their scatters, index_add_, sorts)": (
+                  "index", "gather", "scatter", "sort", "radix"),
+              "embedding_bag (fixed-order segment sums)": ("embedding_bag", "embeddingbag"),
+              "FFT": ("fft", "regular_fft", "vector_fft"),
+              "reductions (norms, sums, softmax, logsumexp)": ("reduce_kernel", "softmax",
+                                                               "logsumexp"),
+              "elementwise": ("elementwise",)}
+    for name in TOWER3_MODELS:
+        cfg, _ = path_config(name, args)
+        model = build_model(cfg, ds, device)
+        trainer = Trainer(model, ds, cfg)
+        params = trainer.init_params()
+        opt = trainer.make_optimizer(params)
+        batch = first_batch(trainer, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        wall_ms, busy_ms = device_profile(
+            "tw3profile", f"one {name} training step of {cfg.batch_size} edges at "
+            f"{LINEAR_DATASET} (forward, backward, Adam)",
+            lambda: trainer.train_step(params, opt, batch),
+            os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+            groups=groups)
+        others = other_counts()
+        say("tw3profile", f"{name} step peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel launches {others}")
+        check(not any(others), f"{name} step launched {others}")
+        if name == "GUME":
+            # bdot's backward casts the bf16 operand to a float32 copy: R (or
+            # its transpose) once a product with R, the (I, I) I-I or kNN
+            # graph once a product with it
+            n_r = 2 * model.n_ui_layers + 1
+            n_ii = model.n_ui_layers + 2 * model.n_layers
+            r_ms = cuda_ms(lambda: model.r_norm.float(), 5)
+            ii_ms = cuda_ms(lambda: model.ii_norm.float(), 5)
+            copies_ms = n_r * r_ms + n_ii * ii_ms
+            say("tw3profile", f"GUME's fp32 copies of its bf16 graphs in bdot's backward: "
+                f"{n_r} of R {tuple(model.r_norm.shape)} at {r_ms:.3f} ms and {n_ii} of an "
+                f"(I, I) graph at {ii_ms:.3f} ms, timed alone: {copies_ms:.2f} ms a step, "
+                f"{100 * copies_ms / busy_ms:.1f}% of its device time ({busy_ms:.1f} ms), "
+                f"{100 * copies_ms / wall_ms:.1f}% of its wall ({wall_ms:.1f} ms)")
+        del model, trainer, params, opt
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t_start
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3965,6 +4175,11 @@ def main(argv=None) -> int:
     say("tw2profile", f"phases 48-50's share of the run: {towers2_s:.1f} s, their "
         f"{len(TOWER2_MODELS)} models' determinism runs {towers2_det_s:.1f} s; "
         f"{towers2_s + towers2_det_s:.1f} s in all")
+    towers3_s = towers3_phases(args, device, bds)
+    towers3_det_s = sum(sum(det[n]["seconds"]) for n in TOWER3_MODELS)
+    say("tw3profile", f"phases 51-53's share of the run: {towers3_s:.1f} s, their "
+        f"{len(TOWER3_MODELS)} models' determinism runs {towers3_det_s:.1f} s; "
+        f"{towers3_s + towers3_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's

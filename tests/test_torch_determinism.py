@@ -34,6 +34,7 @@ from test_torch_lightgcn import BPR, LIGHTGCN
 from test_torch_mgat import CFG as MGAT
 from test_torch_mm_towers import FLAGS as MM_TOWERS
 from test_torch_mm_towers2 import FLAGS as MM_TOWERS2
+from test_torch_mm_towers3 import FLAGS as MM_TOWERS3
 from test_torch_ncl import CFG as NCL
 from test_torch_ngcf_layergcn import LAYERGCN, NGCF_FLAGS
 from test_torch_sgl import CFG as SGL
@@ -48,7 +49,8 @@ CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF
                                                           "FKAN_GCF", "MCLN")},
            "BSPM": BSPM, "GFormer": GFORMER,
            **{n: CONTRASTIVE[n] for n in ("HCCF", "LightGCL", "VGCL", "GraphAug")},
-           "AdaGCL": FAMILY2["AdaGCL"], "Grade": FAMILY2["Grade"], **MM_TOWERS, **MM_TOWERS2}
+           "AdaGCL": FAMILY2["AdaGCL"], "Grade": FAMILY2["Grade"], **MM_TOWERS, **MM_TOWERS2,
+           **MM_TOWERS3}
 SEED = 42
 # The id-only models' CPU cases run on one torch thread, as their own port
 # tests do (test_torch_vae.one_torch_thread); the others keep the default

@@ -73,25 +73,89 @@ def test_dense_path_follows_the_threshold():
 @pytest.mark.parametrize("dense", [True, False])
 def test_propagation_matches_jax(dtype, dense):
     """propagate / apply_r / apply_rt on the dense and the segment path
-    against the JAX package's dense graph."""
+    against the JAX package's graph on the same path: its dense R, or its
+    sparse (ELL) graph, which at bf16 rounds the input as the segment path
+    does."""
     edges, nu, ni = _edges(3)
     rs = np.random.default_rng(4)
     xu = rs.standard_normal((nu, 8)).astype(np.float32)
     xi = rs.standard_normal((ni, 8)).astype(np.float32)
-    jg = jnorm.build_norm_adj(edges, nu, ni, use_dense=True, compute_dtype=dtype)
+    jg = jnorm.build_norm_adj(edges, nu, ni, use_dense=dense, compute_dtype=dtype)
     tg = tnorm.build_norm_adj(edges, nu, ni, "cpu", use_dense=dense, compute_dtype=dtype)
     ju, ji = jg.propagate(jnp.asarray(xu), jnp.asarray(xi))
     tu, ti = tg.propagate(torch.from_numpy(xu), torch.from_numpy(xi))
-    # the segment path sums float32 edge weights: hold it to float32 R
+    # the segment path's products are of float32 weights and (bf16-rounded)
+    # inputs, exact in float32 in both packages: only the order of the sums
+    # differs
     tol = PROP_TOL[dtype if dense else "float32"]
-    if not dense and dtype == "bfloat16":
-        jg = jnorm.build_norm_adj(edges, nu, ni, use_dense=True, compute_dtype="float32")
-        ju, ji = jg.propagate(jnp.asarray(xu), jnp.asarray(xi))
     assert tu.dtype == ti.dtype == torch.float32
     np.testing.assert_allclose(tu.numpy(), np.asarray(ju), **tol)
     np.testing.assert_allclose(ti.numpy(), np.asarray(ji), **tol)
     np.testing.assert_allclose(tg.apply_r(torch.from_numpy(xi)).numpy(), np.asarray(ju), **tol)
     np.testing.assert_allclose(tg.apply_rt(torch.from_numpy(xu)).numpy(), np.asarray(ji), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sparse_graph_matches_jax_sparse_graph(dtype):
+    """The segment path against the JAX package's sparse graph
+    (``use_dense=False``: its ELL matrices) at the same dtype, on the values
+    of propagate, apply_r and apply_rt and on their gradients with respect to
+    both inputs. At bf16 the forward is float32 weights times bf16-rounded
+    inputs; the gradients are float32 R^T g and R g, not rounded."""
+    edges, nu, ni = _edges(3)
+    rs = np.random.default_rng(4)
+    xu, xi, gu, gi = (rs.standard_normal((n, 8)).astype(np.float32)
+                      for n in (nu, ni, nu, ni))
+    jg = jnorm.build_norm_adj(edges, nu, ni, use_dense=False, compute_dtype=dtype)
+    tg = tnorm.build_norm_adj(edges, nu, ni, "cpu", use_dense=False, compute_dtype=dtype)
+    assert jg.ell is not None and not tg.use_dense and tg.dense_r is None
+
+    def jax_fn(a, b):
+        u, i = jg.propagate(a, b)
+        return u, i, jg.apply_r(b), jg.apply_rt(a)
+
+    jouts, jvjp = jax.vjp(jax_fn, jnp.asarray(xu), jnp.asarray(xi))
+    jgrads = jvjp((jnp.asarray(gu), jnp.asarray(gi), jnp.asarray(gu), jnp.asarray(gi)))
+    txu, txi = (torch.from_numpy(a).requires_grad_() for a in (xu, xi))
+    tu, ti = tg.propagate(txu, txi)
+    touts = (tu, ti, tg.apply_r(txi), tg.apply_rt(txu))
+    torch.autograd.backward(touts, [torch.from_numpy(a) for a in (gu, gi, gu, gi)])
+    tol = PROP_TOL["float32"]
+    for name, got, want in zip(("propagate_u", "propagate_i", "apply_r", "apply_rt"),
+                               touts, jouts):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol, err_msg=name)
+    for name, got, want in zip(("d user_emb", "d item_emb"), (txu.grad, txi.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_path_rounds_its_input_not_its_gradient(dtype):
+    """apply_r is exactly index_add_ of float32 weights times the input,
+    rounded to bf16 at bf16 and as it is at float32 (the bits the float32
+    path always had); its gradient is exactly the float32 R^T g at both;
+    the dense path is the bf16 or float32 product of the dense R."""
+    edges, nu, ni = _edges(5)
+    rs = np.random.default_rng(6)
+    xi0 = rs.standard_normal((ni, 8)).astype(np.float32)
+    g = torch.from_numpy(rs.standard_normal((nu, 8)).astype(np.float32))
+    tg = tnorm.build_norm_adj(edges, nu, ni, "cpu", use_dense=False, compute_dtype=dtype)
+    xi = torch.from_numpy(xi0).requires_grad_()
+    out = tg.apply_r(xi)
+    out.backward(g)
+    x_in = torch.from_numpy(xi0)
+    if dtype == "bfloat16":
+        x_in = x_in.to(torch.bfloat16).float()
+        assert not torch.equal(x_in, torch.from_numpy(xi0))
+    want = torch.zeros(nu, 8).index_add_(0, tg.u_by_u, tg.w_by_u[:, None] * x_in[tg.i_by_u])
+    assert torch.equal(out, want)
+    xg = torch.from_numpy(xi0).requires_grad_()
+    torch.zeros(nu, 8).index_add_(0, tg.u_by_u, tg.w_by_u[:, None] * xg[tg.i_by_u]).backward(g)
+    assert torch.equal(xi.grad, xg.grad) and xi.grad.dtype == torch.float32
+    dense = tnorm.build_norm_adj(edges, nu, ni, "cpu", use_dense=True, compute_dtype=dtype)
+    r = dense.dense_r.float()
+    x_d = torch.from_numpy(xi0).to(dense.dense_r.dtype).float()
+    assert torch.equal(dense.apply_r(torch.from_numpy(xi0)), r @ x_d)
 
 
 def _features(n=60, f=24, seed=5):
