@@ -20,11 +20,14 @@ from chaorec_tpu_torch.models.bm3 import BM3
 from chaorec_tpu_torch.models.bpr import BPRMF
 from chaorec_tpu_torch.models.bspm import BSPM
 from chaorec_tpu_torch.models.cf_diff import CF_Diff
+from chaorec_tpu_torch.models.cohesion import COHESION
 from chaorec_tpu_torch.models.dccf import DCCF
 from chaorec_tpu_torch.models.ddrec import DDRec
 from chaorec_tpu_torch.models.dgcf import DGCF
 from chaorec_tpu_torch.models.dhcf import DHCF
 from chaorec_tpu_torch.models.diffrec import DiffRec
+from chaorec_tpu_torch.models.dragon import DRAGON
+from chaorec_tpu_torch.models.dualgnn import DualGNN
 from chaorec_tpu_torch.models.dualvae import DualVAE
 from chaorec_tpu_torch.models.fkan_gcf import FKAN_GCF
 from chaorec_tpu_torch.models.freedom import FREEDOM
@@ -39,6 +42,7 @@ from chaorec_tpu_torch.models.lgmrec import LGMRec
 from chaorec_tpu_torch.models.lightgcl import LightGCL
 from chaorec_tpu_torch.models.lightgcn import LightGCN
 from chaorec_tpu_torch.models.lightgode import LightGODE
+from chaorec_tpu_torch.models.lightgt import LightGT
 from chaorec_tpu_torch.models.macridvae import MacridVAE
 from chaorec_tpu_torch.models.mcln import MCLN
 from chaorec_tpu_torch.models.mentor import MENTOR
@@ -499,3 +503,42 @@ def _grcn(cfg: Config, ds: RecDataset, device: torch.device) -> GRCN:
     v, t = _feats(ds, device)
     return GRCN(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device, use_dense=False), v, t,
                 cfg.dim_E, cfg.feature_embed, cfg.reg_weight, cfg.dropout)
+
+
+@register_model("DualGNN")
+def _dualgnn(cfg: Config, ds: RecDataset, device: torch.device) -> DualGNN:
+    # main.py:280-281: DualGNN(..., dim_E, feature_embedding, reg_weight, uu_topk, aggr_mode,
+    #   device)
+    v, t = _feats(ds, device)
+    return DualGNN(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), ds.train_edges, v, t,
+                   cfg.dim_E, cfg.feature_embed, cfg.reg_weight, cfg.uu_topk)
+
+
+@register_model("DRAGON")
+def _dragon(cfg: Config, ds: RecDataset, device: torch.device) -> DRAGON:
+    # main.py:284-286: DRAGON(..., dim_E, feature_embedding, reg_weight, n_layers, ii_topk,
+    #   uu_topk, lambda_coeff (-> mm_image_weight), aggr_mode, device)
+    v, t = _feats(ds, device)
+    return DRAGON(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), ds.train_edges, v, t,
+                  cfg.dim_E, cfg.feature_embed, cfg.reg_weight, cfg.n_layers, cfg.ii_topk,
+                  cfg.uu_topk, mm_image_weight=cfg.lambda_coeff)
+
+
+@register_model("COHESION")
+def _cohesion(cfg: Config, ds: RecDataset, device: torch.device) -> COHESION:
+    # main.py:381-383: COHESION(..., dim_E, reg_weight, dropout, n_layers, mm_layers, ii_topk,
+    #   mm_image_weight, device)
+    v, t = _feats(ds, device)
+    return COHESION(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), ds.train_edges, v, t,
+                    cfg.dim_E, cfg.reg_weight, cfg.dropout, cfg.n_layers, cfg.mm_layers,
+                    cfg.ii_topk, cfg.mm_image_weight)
+
+
+@register_model("LightGT")
+def _lightgt(cfg: Config, ds: RecDataset, device: torch.device) -> LightGT:
+    # main.py:349-350: LightGT(num_user, num_item, train_data, dict, v_feat, t_feat, dim_E,
+    #   reg_weight, n_layers, device)
+    v, t = _feats(ds, device)
+    return LightGT(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device),
+                   torch.from_numpy(ds.history.values).to(device), v, t, cfg.dim_E,
+                   cfg.reg_weight, cfg.n_layers, seed=cfg.seed)

@@ -25,7 +25,8 @@ Counterpart of ``chaorec_tpu/train/loop.py`` for two kinds of model:
 Each epoch calls the model's ``pre_epoch`` first (graph pruning, operator
 rebuilds), counted as training time; then ranks the full catalog
 (``gene_ranklist`` for embedding models, ``rank_from_scores`` for
-score-mode ones) and computes the metrics.
+score-mode ones, after a model's ``resample_eval`` where it has one) and
+computes the metrics.
 
 Behavioral parity with the JAX trainer, and through it the reference:
 - epoch loss = sum of the batch losses, each a weighted mean over its batch;
@@ -311,6 +312,10 @@ class Trainer:
             rank_list = gene_ranklist(user_emb, item_emb, self.history, self.model.num_user,
                                       self.cfg.rank_topk, self.cfg.eval_user_chunk)
         else:
+            # a fresh draw a ranking pass (LightGT's evaluation subsets, as the
+            # reference's EvalDataset reshuffles, dataload.py:124-145)
+            if hasattr(self.model, "resample_eval"):
+                self.model.resample_eval()
             rank_list = rank_from_scores(self.model, params, self.history,
                                          self.cfg.rank_topk, self.cfg.eval_user_chunk,
                                          self.model_state)

@@ -89,7 +89,18 @@ published width with random weights from ``--seed``:
   the two kNN graphs), GUME (3 layers over R, R^T and the I-I intersection
   graph, dense bf16 products, 192 wide) and GRCN (the doubled edge list's
   attention towers and the gated id convolutions, 10% edge dropout; its
-  192-wide embeddings exported and served). No kernel lies on their path.
+  192-wide embeddings exported and served). No kernel lies on their path;
+- the user co-occurrence graph's towers and LightGT, each at its Model_YAML
+  file's first combo on the same beauty-sized set: DualGNN (two 2-layer
+  towers, weighted-sum fusion, 10 co-occurrence neighbours a user redrawn
+  each epoch), DRAGON ("cat" fusion, 40 neighbours, 2 passes of the 10-NN
+  item graph mixed 0.6 image), COHESION (three 1-layer towers over bf16
+  products with R, 40 neighbours, one item-graph pass; its embeddings
+  exported and served) and LightGT (4 LightGCN layers feeding 4 encoder
+  layers a modality over 50-item history samples; its rank lists over
+  20-item evaluation subsets, redrawn each ranking pass, exported and
+  served). The co-occurrence graph is B B^T on the card. No kernel lies on
+  their path.
 
 Phases, each printing its own lines:
 
@@ -209,7 +220,7 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the 44 trained models twice from a fresh trainer on one
+34. determinism  each of the 48 trained models twice from a fresh trainer on one
             seed at the path's shapes (CF_Diff and DiffRec one epoch, the
             others 20 steps), then an evaluation: equal loss bits and equal
             rank lists, one JSON line per model with both runs' seconds;
@@ -234,7 +245,7 @@ Phases, each printing its own lines:
             the seconds phases 35-38 and the nine's determinism runs added
 39. family  BSPM, GFormer, HCCF, LightGCL, VGCL and GraphAug cli.run at
             their first combo on the beauty-sized set, BSPM one pass (its
-            spectral build and evaluation seconds), the others 2 epochs
+            spectral build and evaluation seconds), the others 1 epoch
             (loss, training and eval walls, eval users per second, peak
             memory); GFormer's K2 launches (3 terms a step, each kernel
             counted; none elsewhere); BSPM's and GFormer's
@@ -256,7 +267,7 @@ Phases, each printing its own lines:
             one BSPM evaluation chunk at the beauty-sized set, peak memory;
             the seconds phases 39-42 and the five's determinism runs added
 43. family2 AdaGCL and Grade cli.run at their first combo on the
-            beauty-sized set through their own trainers, 2 epochs each:
+            beauty-sized set through their own trainers, 1 epoch each:
             loss, training wall (and a step's), eval wall, eval users per
             second, peak memory; K4's launches against the count read off
             the code (scan_launches: 18 L - 3 a step for AdaGCL, 18 L for
@@ -266,8 +277,8 @@ Phases, each printing its own lines:
             prefix_cumsum_reference and a float64 prefix under phase 20's
             gate, the same bits twice; its time beside the plain version's,
             torch.cumsum's and the bound
-45. towers  SLMRec, VBPR, BM3 and MGCL cli.run at their first combo, 2
-            epochs each (no kernel launch expected); MGCL's exported
+45. towers  SLMRec, VBPR, BM3 and MGCL cli.run at their first combo, 1
+            epoch each (no kernel launch expected); MGCL's exported
             embeddings served over HTTP
 46. fam2step one step of each of the four on the card against the CPU on
             phase 32's seeded set with features (float32 R, equal params,
@@ -288,7 +299,7 @@ Phases, each printing its own lines:
             memory; the seconds phases 43-47 and the six's determinism runs
             added
 48. towers2 MMGCL, LGMRec, MMGCN, MVGAE, POWERec, MENTOR and DDRec cli.run
-            at their first combo, 2 epochs each (no kernel launch
+            at their first combo, 1 epoch each (no kernel launch
             expected); MMGCN's and MVGAE's frozen tensors bit-equal to a
             fresh build's after training; DDRec's best epoch exported with
             its state and served over HTTP
@@ -306,8 +317,8 @@ Phases, each printing its own lines:
             full-table InfoNCE (forward and backward at its (U, 2 dim_E) and
             (I, 2 dim_E) shapes) timed alone, its share of MENTOR's step;
             the seconds phases 48-50 and the seven's determinism runs added
-51. towers3 MGCN, SMORE, GUME and GRCN cli.run at their first combo, 2
-            epochs each (no kernel launch expected); each build's seconds
+51. towers3 MGCN, SMORE, GUME and GRCN cli.run at their first combo, 1
+            epoch each (no kernel launch expected); each build's seconds
             and peak memory (GUME's: its host kNN over the full similarity,
             its dense bf16 R, I-I and kNN graphs' bytes); GRCN's best epoch
             exported and served over HTTP
@@ -324,6 +335,25 @@ Phases, each printing its own lines:
             fp32 copies of its dense bf16 graphs in bdot's backward timed
             alone, their share of its step; the seconds phases 51-53 and
             the four's determinism runs added
+54. towers4 DualGNN and DRAGON cli.run at their first combo, 2 epochs each
+            (no kernel launch expected); the user co-occurrence build's
+            seconds and peak memory on the card, equal to the host's
+            sparse path (scipy), and each epoch's host topk_sample seconds;
+            one step of each under the profiler (device time by kernel
+            group, idle share, peak memory)
+55. cohesion COHESION likewise, its best epoch exported and served over HTTP
+56. lightgt LightGT likewise, its evaluation subsets drawn once before each
+            ranking pass and not at export, its rank lists exported and
+            served over HTTP
+57. tw4step one step of each of the four on the card against the CPU on
+            phase 32's seeded set with features (float32 U-I graph, equal
+            params, batch and LightGT's draws; the user graph built on each
+            and required equal; the CPU's kNN graph; the card held to the
+            CPU's side of every LeakyReLU: Kinks): the loss and every
+            gradient, COHESION's (bf16 operands on both sides) at the
+            bf16-operator bound; beside each, not a gate, the CPU's own
+            step's spread from params nudged by 2^-24; the seconds phases
+            54-57 and the four's determinism runs added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -482,7 +512,7 @@ P_SAMPLE_RTOL = 2.0 ** -6
 # rule their trainers keep no weights of their own.
 FAMILY_MODELS = ("BSPM", "GFormer", "HCCF", "LightGCL", "VGCL", "GraphAug")
 FAMILY_TRAINED = FAMILY_MODELS[1:]
-FAMILY_EPOCHS = 2
+FAMILY_EPOCHS = 1  # one epoch, to leave room in the run for phases 54-57
 FAMILY_UNEXPORTED = ("BSPM", "GFormer")
 GFORMER_TERMS = 3  # K2 terms a GFormer step (two self-contrasts, the cross term); k needs a gradient in each
 # BSPM's scores, card against CPU on phase 32's seeded set: within this share
@@ -493,10 +523,10 @@ BSPM_SCORE_TOL = 1e-4
 # run K4 over the doubled edge list, and four multimodal towers on the
 # plain BPR branch (no kernel), all on the beauty-sized set with features
 FAMILY2_MODELS = ("AdaGCL", "Grade")
-FAMILY2_EPOCHS = 2
+FAMILY2_EPOCHS = 1  # likewise
 FAMILY2_STEP_BATCHES = 2  # phase 46 holds the card to the CPU over this many batches
 TOWER_MODELS = ("SLMRec", "VBPR", "BM3", "MGCL")
-TOWER_EPOCHS = 2
+TOWER_EPOCHS = 1  # phases 45, 48 and 51, likewise
 TOWER_SERVED = "MGCL"  # exported and served: its embeddings are a plain forward
 # phases 48-50: the rest of the multimodal towers on the standard trainer (no
 # kernel), on the beauty-sized set with features; DDRec on its stateful branch
@@ -507,12 +537,20 @@ TOWER2_STATE_BATCHES = 2  # phase 49's DDRec steps: the second gated by the firs
 # sums (no kernel), on the beauty-sized set with features
 TOWER3_MODELS = ("MGCN", "SMORE", "GUME", "GRCN")
 TOWER3_SERVED = "GRCN"  # exported and served: 192-wide embeddings without edge dropout
+# phases 54-57: the user co-occurrence graph's towers and LightGT (no kernel),
+# on the beauty-sized set with features; COHESION's embeddings and LightGT's
+# rank lists exported and served
+TOWER4_MODELS = ("DualGNN", "DRAGON", "COHESION", "LightGT")
+TOWER4_SERVED = ("COHESION", "LightGT")
+TOWER4_EPOCHS = 2  # LightGT's evaluation subsets redrawn before each pass
+TOWER4_PHASE = {"DualGNN": "towers4", "DRAGON": "towers4", "COHESION": "cohesion",
+                "LightGT": "lightgt"}
 # phase 46: a card optimizer step's params and moments against the float64
 # Adam step of the CPU's state with the card's own gradient (rounding only)
 ADAM_STEP_RTOL = 1e-5
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
               "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED + (
-              FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS + TOWER3_MODELS)
+              FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS + TOWER3_MODELS + TOWER4_MODELS)
 USER_ROW_MODELS = ("CF_Diff", "DiffRec")
 DET_STEPS = 20
 
@@ -2291,13 +2329,13 @@ def device_step(model, params, state, batch, draws, kinks):
     return loss.item(), grads, flat_state(new_state)
 
 
-def worst_share(got: dict, want: dict):
+def worst_share(got: dict, want: dict, rtol: float = STEP_RTOL):
     """(worst ratio of an entry's error to its bound, its name) over
-    ``want``'s tensors: rtol STEP_RTOL of the tensor's largest entry plus
+    ``want``'s tensors: ``rtol`` of the tensor's largest entry plus
     STEP_ATOL of the largest entry of them all."""
     scale = max(w.abs().max().item() for w in want.values())
     return max(((got[n] - w).abs().max().item()
-                / (STEP_RTOL * w.abs().max().item() + STEP_ATOL * scale), n)
+                / (rtol * w.abs().max().item() + STEP_ATOL * scale), n)
                for n, w in want.items())
 
 
@@ -2466,7 +2504,7 @@ def path_config(name: str, args):
     it: CF_Diff at MODEL_CONFIG on the baby-sized set, LightGCN at
     LIGHTGCN_CONFIG and the rest of its family at their Model_YAML file's
     first combo on the beauty-sized set, and so the id-only models and
-    phases 39-53's, every other model at its first combo on the
+    phases 39-57's, every other model at its first combo on the
     sports-sized set."""
     from chaorec_tpu_torch.config import Config
 
@@ -2477,7 +2515,7 @@ def path_config(name: str, args):
         return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
     ds = (LINEAR_DATASET if name in (LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
                                      + FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS
-                                     + TOWER3_MODELS)
+                                     + TOWER3_MODELS + TOWER4_MODELS)
           else FREEDOM_DATASET)
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
@@ -3786,6 +3824,204 @@ def towers3_phases(args, device, ds) -> float:
     return time.perf_counter() - t_start
 
 
+class UserGraphProbe:
+    """While active, times each co-occurrence build
+    (``graphs/user_graph.build_user_cooccurrence``; the device synchronized
+    at both ends, its peak device memory above what was allocated before
+    it) and each ``topk_sample`` (the host's neighbour draw, seconds)."""
+
+    def __enter__(self):
+        from chaorec_tpu_torch.graphs import user_graph
+
+        self.ug = user_graph
+        build, sample = self.orig = user_graph.build_user_cooccurrence, user_graph.topk_sample
+        self.builds, self.samples = [], []
+
+        def timed_build(*a, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = build(*a, **kw)
+            torch.cuda.synchronize()
+            self.builds.append(dict(seconds=time.perf_counter() - t0, peak_gib=(
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30))
+            return out
+
+        def timed_sample(*a, **kw):
+            t0 = time.perf_counter()
+            out = sample(*a, **kw)
+            self.samples.append(time.perf_counter() - t0)
+            return out
+
+        user_graph.build_user_cooccurrence, user_graph.topk_sample = timed_build, timed_sample
+        return self
+
+    def __exit__(self, *exc):
+        self.ug.build_user_cooccurrence, self.ug.topk_sample = self.orig
+
+
+def towers4_phases(args, device, ds) -> float:
+    """Phases 54-57: DualGNN and DRAGON (54), COHESION (55, its embeddings
+    exported and served) and LightGT (56, its rank lists exported and
+    served) through cli.run on beauty, each with its step's profile; the
+    co-occurrence build on the card against the host's sparse path; then one
+    step of each on the card against the CPU (57). No kernel launch expected
+    anywhere. Returns their wall seconds."""
+    from chaorec_tpu_torch.graphs.knn import ELLGraph
+    from chaorec_tpu_torch.graphs.user_graph import build_user_cooccurrence
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.models.lightgt import LightGT
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    t_start = time.perf_counter()
+    groups = {"GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "copies (dtype casts: bdot's fp32 copies of the bf16 R among them)": ("copy",),
+              "index kernels (gathers, their scatters, index_add_, sorts)": (
+                  "index", "gather", "scatter", "sort", "radix"),
+              "reductions (norms, sums, softmax)": ("reduce_kernel", "softmax"),
+              "elementwise": ("elementwise",)}
+    host_uu = None
+    real_resample = LightGT.resample_eval
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in TOWER4_MODELS:
+            phase = TOWER4_PHASE[name]
+            cfg, _ = path_config(name, args)
+            served = name in TOWER4_SERVED
+            art = os.path.join(tmp, f"{name}.npz") if served else ""
+            draws = []
+
+            def counted(model):
+                draws.append(model._eval_draws)
+                real_resample(model)
+
+            LightGT.resample_eval = counted
+            try:
+                with UserGraphProbe() as uu, BuildProbe() as built:
+                    models, _ = linear_cli_run(phase, device, ds, name, cfg.replace(
+                        num_epoch=TOWER4_EPOCHS, log_dir=args.out_dir, export_artifact=art),
+                        first_combo(name)[1])
+            finally:
+                LightGT.resample_eval = real_resample
+            model = models[0]
+            check(model.device.type == device.type, f"{name} is not on the card")
+            say(phase, f"{name} build: {built.builds[0]['seconds']:.3f} s")
+            if uu.builds:
+                b = uu.builds[0]
+                say(phase, f"{name}'s user co-occurrence graph (B B^T of the {ds.num_user} x "
+                    f"{ds.num_item} 0/1 matrix in bf16, {ds.num_user * ds.num_item * 2 / 1e6:.1f}"
+                    f" MB, 4096-row chunks, each row's stable sort): {b['seconds']:.3f} s on "
+                    f"the card, peak {b['peak_gib']:.3f} GiB above what was allocated before "
+                    f"it; {model._uu[0].shape[1]} neighbours kept, {int(model._uu[2].sum())} in "
+                    f"all; topk_sample (numpy, user by user) on the host "
+                    + ", ".join(f"{s:.3f}" for s in uu.samples) + " s (construction, then "
+                    "each epoch's pre_epoch)")
+                if host_uu is None:
+                    t0 = time.perf_counter()
+                    host_uu = build_user_cooccurrence(ds.train_edges, ds.num_user, ds.num_item,
+                                                      dense_threshold=0)
+                    say(phase, f"the host's sparse path (scipy, dense_threshold 0): "
+                        f"{time.perf_counter() - t0:.3f} s")
+                same = all(np.array_equal(a, b) for a, b in zip(model._uu, host_uu))
+                say(phase, f"{name}: the card's dense co-occurrence graph equals the host's "
+                    f"sparse one (indices, counts, lengths): {same}")
+                check(same, f"{name}: the card's co-occurrence graph differs from the host's")
+            if name == "LightGT":
+                say(phase, f"LightGT's evaluation subsets drawn at construction and before "
+                    f"each of its {TOWER4_EPOCHS} ranking passes (draws {draws}); the export drew "
+                    f"none (draw count {model._eval_draws})")
+                check(draws == list(range(TOWER4_EPOCHS + 1))
+                      and model._eval_draws == TOWER4_EPOCHS + 1,
+                      f"LightGT's eval draws {draws}, count {model._eval_draws}")
+            if art and name == "LightGT":
+                reset_counts()
+                rank_ids, hist_global = check_artifact(art, ds, "best-epoch")
+                check_serving(phase, art, ds, device, rank_ids, hist_global, name)
+                check(not any(other_counts()), f"{name} serving launched {other_counts()}")
+            elif art:
+                reset_counts()
+                check_embeddings_serving(phase, art, ds, device, name)
+                check(not any(other_counts()), f"{name} serving launched {other_counts()}")
+            # one step at beauty under the profiler
+            trainer = Trainer(model, ds, cfg)
+            params = trainer.init_params()
+            opt = trainer.make_optimizer(params)
+            model.pre_epoch(params, 0)
+            batch = first_batch(trainer, cfg)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            device_profile(phase, f"one {name} training step of {cfg.batch_size} edges at "
+                           f"{LINEAR_DATASET} (forward, backward, Adam)",
+                           lambda: trainer.train_step(params, opt, batch),
+                           os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
+                           groups=groups)
+            others = other_counts()
+            say(phase, f"{name} step peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel launches {others}")
+            check(not any(others), f"{name} step launched {others}")
+            del models, model, trainer, params, opt
+            torch.cuda.empty_cache()
+
+    # 57. tw4step: one step of each on the card against the CPU's -----------
+    # on phase 32's seeded set with features, float32 U-I graph, equal params,
+    # batch and draws (LightGT's sequences and keep masks), the CPU's kNN
+    # graph, the card held to the CPU's side of each LeakyReLU; COHESION's
+    # products are of bf16 operands on both sides: the bf16-operator bound
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE, features=True)
+    for name in TOWER4_MODELS:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+        given = []
+        if hasattr(cpu_model, "_uu"):
+            same = (all(np.array_equal(a, b) for a, b in zip(card_model._uu, cpu_model._uu))
+                    and torch.equal(card_model.user_nbr_idx.cpu(), cpu_model.user_nbr_idx))
+            check(same, f"{name}: the card built another user graph than the CPU")
+            given.append("the same user graph (built on each)")
+        if hasattr(cpu_model, "mm_graph"):
+            knn_rows = int((card_model.mm_graph.indices.cpu() != cpu_model.mm_graph.indices)
+                           .any(1).sum())
+            card_model.mm_graph = ELLGraph(cpu_model.mm_graph.indices.to(device),
+                                           cpu_model.mm_graph.weights.to(device))
+            given.append(f"the CPU's kNN graph (rows the card's own build picked otherwise: "
+                         f"{knn_rows})")
+        trainer = Trainer(cpu_model, sds, cfg)
+        params = trainer.init_params()
+        batch = first_batch(trainer, cfg)
+        draws = cpu_model.draws(trainer.generator, batch) if hasattr(cpu_model, "draws") else None
+        rtol = BF16_STEP_RTOL if name == "COHESION" else STEP_RTOL
+        kinks, cuts = Kinks(), Cuts()
+        c_loss, c_grads, _ = device_step(cpu_model, params, None, batch, draws,
+                                         pinned_sides(kinks.record(), cuts.record()))
+        reset_counts()
+        g_loss, g_grads, _ = device_step(card_model, params, None, batch, draws,
+                                         pinned_sides(kinks.replay(), cuts.replay()))
+        worst, loss_rel, others = worst_share(g_grads, c_grads, rtol), abs(
+            g_loss - c_loss) / abs(c_loss), other_counts()
+        # not a gate: how far the CPU's own step moves from params nudged by
+        # 2^-24 of each entry, on the same kink sides
+        nudge_gen = torch.Generator().manual_seed(57)
+        nudged = {k: v.detach() * (1 + 2.0 ** -24 * torch.randn(v.shape, generator=nudge_gen))
+                  for k, v in params.items()}
+        _, n_grads, _ = device_step(cpu_model, nudged, None, batch, draws,
+                                    pinned_sides(kinks.replay(), cuts.replay()))
+        spread = worst_share(n_grads, c_grads, rtol)
+        say("tw4step", f"one {name} step of {batch.users.shape[0]} edges on a float32 R "
+            f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}, 4096- and 384-wide features"
+            f"{', products of bf16 operands' if name == 'COHESION' else ''}), card vs CPU on "
+            f"the same params, batch, negatives{', draws' if draws else ''}"
+            f"{''.join(', ' + g for g in given)}: loss {g_loss:.7f} vs {c_loss:.7f} (rel "
+            f"{loss_rel:.2e}, bound {STEP_LOSS_RTOL:g}); worst gradient {worst[1]} at "
+            f"{worst[0]:.3f} of its bound (rtol {rtol:g}; the CPU's own step from params "
+            f"nudged by 2^-24: {spread[1]} at {spread[0]:.3f}, not a gate); LeakyReLU units on "
+            f"the other side {kinks.flips}; kernel launches {others}")
+        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0 and not any(others),
+              f"{name} card step disagrees")
+        del cpu_model, card_model, trainer
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_start
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4180,6 +4416,11 @@ def main(argv=None) -> int:
     say("tw3profile", f"phases 51-53's share of the run: {towers3_s:.1f} s, their "
         f"{len(TOWER3_MODELS)} models' determinism runs {towers3_det_s:.1f} s; "
         f"{towers3_s + towers3_det_s:.1f} s in all")
+    towers4_s = towers4_phases(args, device, bds)
+    towers4_det_s = sum(sum(det[n]["seconds"]) for n in TOWER4_MODELS)
+    say("tw4step", f"phases 54-57's share of the run: {towers4_s:.1f} s, their "
+        f"{len(TOWER4_MODELS)} models' determinism runs {towers4_det_s:.1f} s; "
+        f"{towers4_s + towers4_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's

@@ -35,6 +35,7 @@ from test_torch_mgat import CFG as MGAT
 from test_torch_mm_towers import FLAGS as MM_TOWERS
 from test_torch_mm_towers2 import FLAGS as MM_TOWERS2
 from test_torch_mm_towers3 import FLAGS as MM_TOWERS3
+from test_torch_mm_towers4 import FLAGS as MM_TOWERS4
 from test_torch_ncl import CFG as NCL
 from test_torch_ngcf_layergcn import LAYERGCN, NGCF_FLAGS
 from test_torch_sgl import CFG as SGL
@@ -50,12 +51,15 @@ CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF
            "BSPM": BSPM, "GFormer": GFORMER,
            **{n: CONTRASTIVE[n] for n in ("HCCF", "LightGCL", "VGCL", "GraphAug")},
            "AdaGCL": FAMILY2["AdaGCL"], "Grade": FAMILY2["Grade"], **MM_TOWERS, **MM_TOWERS2,
-           **MM_TOWERS3}
+           **MM_TOWERS3, **MM_TOWERS4}
 SEED = 42
-# The id-only models' CPU cases run on one torch thread, as their own port
-# tests do (test_torch_vae.one_torch_thread); the others keep the default
-# thread pool.
-ONE_THREAD = (*VAES, "DiffRec", "DHCF", "LightGODE", "SelfCF", "FKAN_GCF", "MCLN")
+# The id-only models' and the user-graph towers' and LightGT's CPU cases run
+# on one torch thread, as their own port tests do
+# (test_torch_vae.one_torch_thread): LightGT's many small operations
+# otherwise contend with the other workers' thread pools (233 s for a case
+# of 1 s alone); the others keep the default pool.
+ONE_THREAD = (*VAES, "DiffRec", "DHCF", "LightGODE", "SelfCF", "FKAN_GCF", "MCLN",
+              *MM_TOWERS4)
 
 
 def _run(ds, name, device, seed=SEED, epochs=2):
