@@ -27,6 +27,12 @@ its methods are functions of an explicit params dict of tensors:
   math as ``loss``) and steps each table with the row-sparse Adam
   (``ops/indexed_adam.py``), so no dense table gradient exists
 
+``epoch0_params``: names of params whose gradient is real on each epoch's
+batch 0 only (the rebuild-gated branch, ``train/loop.py``); the trainer
+steps them with a zero gradient on every other batch.
+``frozen_state_epoch``: the model builds its state on batch 0 of each epoch
+and reads it detached on the later batches.
+
 ``needs_int_items``: the trainer draws each "bpr" row a second item from
 outside the user's history, ``Batch.int_items`` (MCLN's "interest"
 items), after its negative.
@@ -75,6 +81,8 @@ class RecModel:
     trainer_mode: str = "bpr"
     mask_value: float = 1e-6
     needs_int_items: bool = False
+    epoch0_params: Tuple[str, ...] = ()
+    frozen_state_epoch: bool = False
 
     def __init__(self, num_user: int, num_item: int):
         self.num_user = num_user

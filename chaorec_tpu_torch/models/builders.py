@@ -37,6 +37,7 @@ from chaorec_tpu_torch.models.graphaug import GraphAug
 from chaorec_tpu_torch.models.grcn import GRCN
 from chaorec_tpu_torch.models.gume import GUME
 from chaorec_tpu_torch.models.hccf import HCCF
+from chaorec_tpu_torch.models.lattice import LATTICE
 from chaorec_tpu_torch.models.layergcn import LayerGCN
 from chaorec_tpu_torch.models.lgmrec import LGMRec
 from chaorec_tpu_torch.models.lightgcl import LightGCL
@@ -49,8 +50,10 @@ from chaorec_tpu_torch.models.mentor import MENTOR
 from chaorec_tpu_torch.models.mgat import MGAT
 from chaorec_tpu_torch.models.mgcl import MGCL
 from chaorec_tpu_torch.models.mgcn import MGCN
+from chaorec_tpu_torch.models.micro import MICRO
 from chaorec_tpu_torch.models.mmgcl import MMGCL
 from chaorec_tpu_torch.models.mmgcn import MMGCN
+from chaorec_tpu_torch.models.mmssl import MMSSL
 from chaorec_tpu_torch.models.multvae import MultVAE
 from chaorec_tpu_torch.models.mvgae import MVGAE
 from chaorec_tpu_torch.models.ncl import NCL
@@ -70,12 +73,17 @@ from chaorec_tpu_torch.ops.svd import randomized_svd
 
 
 def _ui_graph(cfg: Config, ds: RecDataset, device: torch.device,
-              use_dense: Optional[bool] = None) -> BipartiteGraph:
+              use_dense: Optional[bool] = None, bf16_dense_budget: int = 0) -> BipartiteGraph:
     """The normalized user-item graph in ``cfg.graph_compute_dtype``: dense
-    while U * I is at most ``cfg.dense_prop_threshold``, unless ``use_dense``
-    says otherwise (False: the JAX builders' ``force_sparse``)."""
+    while U * I is at most ``cfg.dense_prop_threshold`` (raised to
+    ``bf16_dense_budget`` at bfloat16, where the dense R is half the bytes),
+    unless ``use_dense`` says otherwise (False: the JAX builders'
+    ``force_sparse``)."""
+    thr = cfg.dense_prop_threshold
+    if bf16_dense_budget and cfg.graph_compute_dtype == "bfloat16":
+        thr = max(thr, bf16_dense_budget)
     return build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device,
-                          use_dense=use_dense, dense_threshold=cfg.dense_prop_threshold,
+                          use_dense=use_dense, dense_threshold=thr,
                           compute_dtype=cfg.graph_compute_dtype)
 
 
@@ -122,6 +130,38 @@ def _freedom(cfg: Config, ds: RecDataset, device: torch.device) -> FREEDOM:
         cfg.n_layers, cfg.mm_layers, cfg.ii_topk,
         mm_image_weight=cfg.lambda_coeff,
     )
+
+
+@register_model("LATTICE")
+def _lattice(cfg: Config, ds: RecDataset, device: torch.device) -> LATTICE:
+    # main.py:276-279: LATTICE(..., dim_E, feature_embedding, reg_weight, n_layers, mm_layers,
+    #   ii_topk, aggr_mode, lambda_coeff, device); the dense bf16 U-I graph up to 8e8 cells
+    v, t = _feats(ds, device)
+    return LATTICE(ds.num_user, ds.num_item,
+                   _ui_graph(cfg, ds, device, bf16_dense_budget=int(8e8)), v, t,
+                   cfg.dim_E, cfg.feature_embed, cfg.reg_weight, cfg.n_layers, cfg.mm_layers,
+                   cfg.ii_topk, cfg.lambda_coeff, compute_dtype=cfg.graph_compute_dtype)
+
+
+@register_model("MICRO")
+def _micro(cfg: Config, ds: RecDataset, device: torch.device) -> MICRO:
+    # main.py:294-296: MICRO(..., dim_E, n_layers, reg_weight, ii_topk, mm_layers, ssl_temp,
+    #   lambda_coeff, ssl_alpha, aggr_mode, device); the U-I graph is sparse
+    v, t = _feats(ds, device)
+    return MICRO(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device, use_dense=False), v, t,
+                 cfg.dim_E, cfg.n_layers, cfg.reg_weight, cfg.ii_topk, cfg.mm_layers,
+                 cfg.ssl_temp, cfg.lambda_coeff, cfg.ssl_alpha,
+                 compute_dtype=cfg.graph_compute_dtype)
+
+
+@register_model("MMSSL")
+def _mmssl(cfg: Config, ds: RecDataset, device: torch.device) -> MMSSL:
+    # main.py:331-332: MMSSL(..., dim_E, reg_weight, ssl_alpha, ssl_temp, G_rate, mm_layers,
+    #   device)
+    v, t = _feats(ds, device)
+    return MMSSL(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), _dense_x(ds, device),
+                 v, t, cfg.dim_E, cfg.reg_weight, cfg.ssl_alpha, cfg.ssl_temp, cfg.G_rate,
+                 cfg.mm_layers, batch_size=cfg.batch_size)
 
 
 @register_model("SGL")

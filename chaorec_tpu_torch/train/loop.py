@@ -52,14 +52,26 @@ slot is the whole training epoch (``pre_epoch`` included) up to the host's
 read of its loss (the device has finished by then), and "eval+sync" the
 ranking and metrics.
 
+The rebuild-gated branch (LATTICE, MICRO): a model with
+``frozen_state_epoch`` builds its graph on each epoch's batch 0
+(``batch.index == 0``) and reads it detached on every later batch, a Python
+branch in its ``loss_stateful``. Its ``epoch0_params`` get a real gradient
+on batch 0 only. The reference pins torch 1.11, whose ``zero_grad`` zeroes
+``.grad`` rather than dropping it, so Adam steps those params on every later
+batch with a zero gradient: momentum decay, and a step count that grows each
+batch. The JAX trainer applies those steps after the epoch in closed form
+(``chaorec_tpu/ops/adam_tail.py``); this trainer runs them literally:
+``train_step`` fills every gradient through ``grads_into`` (zeros where the
+loss does not reach a param) before ``optimizer.step()``, for a model with
+``epoch0_params`` only, so every other model's step is unchanged. As in the
+JAX trainer, ``epoch0_params`` and ``table_params`` are refused together.
+
 Not ported: the JAX trainer's chunked epoch dispatch, its serialize guard,
 its compile sharing through injected hyperparameters and its one-epoch-deep
-eval pipeline exist for the TPU and its remote link. The rebuild-gated
-branches (``epoch0_params``, ``frozen_state_epoch``), checkpointing, mesh
-training and the profiler hook come with the models and slices that need
-them: the trainer refuses a model that asks for one, and refuses
-``--checkpoint_dir``, ``--checkpoint_every``, ``--mesh_shape`` and
-``--profile_dir`` (``UNPORTED_FLAGS``).
+eval pipeline exist for the TPU and its remote link. Checkpointing, mesh
+training and the profiler hook come with the slices that need them: the
+trainer refuses ``--checkpoint_dir``, ``--checkpoint_every``,
+``--mesh_shape`` and ``--profile_dir`` (``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -191,13 +203,12 @@ class Trainer:
             raise NotImplementedError(
                 f"{model.name}: trainer_mode {model.trainer_mode!r} with stateful="
                 f"{model.stateful} is not ported; it comes with its models")
+        if model.epoch0_params and model.table_params:
+            raise ValueError(f"{model.name}: table_params and epoch0_params are mutually "
+                             "exclusive (the row-sparse path has no rebuild-gated schema)")
         if model.stateful and model.table_params:
             raise NotImplementedError(f"{model.name}: a stateful model with row-sparse "
                                       "tables is not ported")
-        for gate in ("epoch0_params", "frozen_state_epoch"):
-            if getattr(model, gate, None):
-                raise NotImplementedError(f"{model.name}: the rebuild-gated branch "
-                                          f"({gate}) is not ported; it comes with its models")
         for flag, item in UNPORTED_FLAGS.items():
             if getattr(cfg, flag):
                 raise NotImplementedError(f"--{flag} is not ported; ROADMAP {item} ports it")
@@ -254,7 +265,11 @@ class Trainer:
                     params, self.model_state, batch, self.generator)
             else:
                 loss = self.model.loss(params, batch, self.generator)
-            loss.backward()
+            if self.model.epoch0_params:
+                # off batch 0 the gated params get a zero gradient, not none
+                grads_into(loss, params.values())
+            else:
+                loss.backward()
             optimizer.step()
             return loss
         dense = {k: v for k, v in params.items() if k not in names}

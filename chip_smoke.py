@@ -100,7 +100,19 @@ published width with random weights from ``--seed``:
   layers a modality over 50-item history samples; its rank lists over
   20-item evaluation subsets, redrawn each ranking pass, exported and
   served). The co-occurrence graph is B B^T on the card. No kernel lies on
-  their path.
+  their path;
+- the rebuild-gated trainer branch and MMSSL's adversarial trainer, each at
+  its Model_YAML file's first combo on the same beauty-sized set: LATTICE
+  (2 layers, the dense bf16 (I, I) item graph rebuilt from the projected
+  features on each epoch's batch 0 and read detached after it, its
+  projections, feature tables and modal weights stepped on a zero gradient
+  off batch 0; frozen batches through the row operators R R^T and R^T R),
+  MICRO (two learned 10-NN modal graphs, the sparse U-I graph, its
+  full-catalog InfoNCE through the streaming logsumexp kernels, q rows of
+  k's own table) and MMSSL (a WGAN-GP discriminator over (2B, I) rows with
+  its Adam, then the generator's AdamW, optimizers made anew each epoch;
+  dense fp32 (U, I) products); LATTICE's and MICRO's embeddings exported
+  and served, MMSSL's export skipped (its trainer keeps no weights).
 
 Phases, each printing its own lines:
 
@@ -220,7 +232,7 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the 48 trained models twice from a fresh trainer on one
+34. determinism  each of the 51 trained models twice from a fresh trainer on one
             seed at the path's shapes (CF_Diff and DiffRec one epoch, the
             others 20 steps), then an evaluation: equal loss bits and equal
             rank lists, one JSON line per model with both runs' seconds;
@@ -354,6 +366,34 @@ Phases, each printing its own lines:
             bf16-operator bound; beside each, not a gate, the CPU's own
             step's spread from params nudged by 2^-24; the seconds phases
             54-57 and the four's determinism runs added
+58. rebuild LATTICE and MICRO cli.run at their first combo, 1 epoch each
+            (MICRO's K2 launches: 2 terms a step, each kernel counted; none
+            elsewhere); each build's seconds and peak memory, the row
+            operators' and the carried graph's bytes; each best epoch
+            exported and served over HTTP; the batch-0 graph build alone
+            (seconds, peak), then one batch-0 step and one frozen step
+            under the profiler (device time by kernel group, idle share,
+            peak memory)
+59. mmssl  MMSSL cli.run through its trainer_cls, 1 epoch (no kernel
+            launch expected), --export_artifact skipped with the JAX CLI's
+            warning; its dense tables' bytes; one step under the profiler
+60. k2micro the streaming logsumexp at MICRO's shape ((I, 64) q rows of a
+            (2I, 64) k, temperature 0.5; dq and dk both reach q's table)
+            against the plain version and its autograd at phase 3's gates,
+            then each kernel's time beside the plain version's, the library
+            route's and its bound
+61. rgstep batch 0 (the graph build) and batch 1 (on the CPU's batch-0
+            graph) of LATTICE and MICRO at float32 and bfloat16 on the card
+            against the CPU on phase 32's seeded set, the card on the CPU's
+            kNN picks and original graphs (KnnPins): the loss, every
+            gradient (the gated params' nonzero on batch 0 only), the built
+            graph, K2's launches (MICRO at bf16: 2 of each a batch); MMSSL
+            over two batches, each optimizer step (the discriminator's
+            Adam, the AdamW) of the card's from the CPU's params and state:
+            gradients within the larger of the step bounds and 4 x their
+            spread, the card's steps against float64 Adam and AdamW on its
+            own gradient, the new count matrices equal; the seconds phases
+            58-61 and the three's determinism runs added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -491,6 +531,11 @@ STEP_SHAPE = (2048, 1024)  # phase 32's seeded set, users x items
 # another order, so either may land one bf16 ulp (2^-8 relative) away:
 # 2^-6 of the tensor's largest entry, far below what a wrong row would move.
 BF16_STEP_RTOL = 2.0 ** -6
+# Phase 61's bf16 steps (LATTICE's dense bf16 item graph, MICRO's bf16 U-I
+# inputs): the graph is rounded to bf16 from float32 sums taken in another
+# order, so an entry may land one bf16 ulp away: the loss to 1e-4, as the CPU
+# tests hold the bf16 paths to the JAX package's
+BF16_LOSS_RTOL = 1e-4
 # Phases 35-38: the models that need no kernel and no new trainer branch,
 # each at its Model_YAML file's first combo on the beauty-sized set (with
 # the synthetic 4096- and 384-wide features MCLN reads); phase 36 serves
@@ -545,12 +590,23 @@ TOWER4_SERVED = ("COHESION", "LightGT")
 TOWER4_EPOCHS = 2  # LightGT's evaluation subsets redrawn before each pass
 TOWER4_PHASE = {"DualGNN": "towers4", "DRAGON": "towers4", "COHESION": "cohesion",
                 "LightGT": "lightgt"}
+# phases 58-61: the rebuild-gated trainer branch (LATTICE, MICRO: batch 0 of
+# each epoch builds the item graph, the later batches read it detached and
+# step the gated params on a zero gradient) and MMSSL's adversarial trainer,
+# on the beauty-sized set with features; LATTICE's and MICRO's exports served
+REBUILD_MODELS = ("LATTICE", "MICRO")
+MMSSL_MODEL = "MMSSL"
+REBUILD_EPOCHS = 1
+# K2 terms a MICRO step at bf16 (each modal view against h); k needs a gradient in each
+MICRO_TERMS = 2
+MMSSL_STEP_BATCHES = 2  # phase 61 holds MMSSL's two optimizer steps over this many batches
 # phase 46: a card optimizer step's params and moments against the float64
 # Adam step of the CPU's state with the card's own gradient (rounding only)
 ADAM_STEP_RTOL = 1e-5
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
               "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED + (
-              FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS + TOWER3_MODELS + TOWER4_MODELS)
+              FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS + TOWER3_MODELS + TOWER4_MODELS
+              + REBUILD_MODELS + (MMSSL_MODEL,))
 USER_ROW_MODELS = ("CF_Diff", "DiffRec")
 DET_STEPS = 20
 
@@ -2022,11 +2078,13 @@ def linear_dataset(args):
     return ds
 
 
-def linear_cli_run(phase, device, ds, name, cfg, grid):
+def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0):
     """One ``cli.run`` of a model on ``ds`` whose path reaches no kernel (the
     linear-GCN family's, the id-only models'), where no kernel launch is
-    expected; prints each epoch's loss, walls and peak memory, each
-    operator's build and the export's wall. Returns (models, operators)."""
+    expected, or (``lse_terms``, MICRO's at bf16) K2 only, each of its
+    forward, dq and dk ``lse_terms`` times a training step; prints each
+    epoch's loss, walls and peak memory, each operator's build and the
+    export's wall. Returns (models, operators)."""
     from chaorec_tpu_torch import cli
 
     probe = EpochProbe()
@@ -2041,7 +2099,7 @@ def linear_cli_run(phase, device, ds, name, cfg, grid):
     finally:
         logging.getLogger().removeFilter(probe)
     run_s = time.perf_counter() - t0
-    others = other_counts()
+    k2, others = lse_counts(), other_counts(*kernel_wrappers()[3:6])
     for op in built.ops:
         say(phase, f"{name}: {describe_op(op)}")
     for e, ep in enumerate(probe.epochs):
@@ -2053,10 +2111,15 @@ def linear_cli_run(phase, device, ds, name, cfg, grid):
     user_rows = built.models[0].trainer_mode == "user_rows"
     n_batches = math.ceil((ds.num_user if user_rows else ds.num_edges) / cfg.batch_size)
     exported = f" + export {export.seconds:.3f} s" if cfg.export_artifact else ""
+    expected = (cfg.num_epoch * n_batches * lse_terms,) * 3
+    launched = (f"streaming_lse fwd/dq/dk launches {k2} (expected {expected}: {lse_terms} terms "
+                f"a step), other kernels {others} (expected none)" if lse_terms else
+                f"kernel launches {other_counts()} (expected none: no TPU kernel lies on this "
+                "path)")
     say(phase, f"{name} cli.run {combo}: {cfg.num_epoch} epochs x {n_batches} batches of "
         f"{cfg.batch_size} {'users' if user_rows else 'edges'}{exported}: {run_s:.3f} s wall; "
-        f"kernel launches {others} (expected none: no TPU kernel lies on this path)")
-    check(not any(others), f"{name} launched {others}")
+        + launched)
+    check(k2 == expected and not any(others), f"{name} launched {k2} and {others}")
     check(len(probe.epochs) == cfg.num_epoch, f"{len(probe.epochs)} epochs logged")
     check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
     check(sorted(best) == [5, 10, 20] and all(
@@ -2299,22 +2362,30 @@ def draws_step(model, params, state, batch, draws):
 
 def flat_state(state):
     """A model state as {name: float32 CPU tensor} (None stays None): a
-    tensor, a tuple of tensors (DiffRec's loss history and its counts) or a
-    dict (DualVAE's caches)."""
+    tensor, nested tuples of tensors (DiffRec's loss history and its counts,
+    LATTICE's and MICRO's item graphs) or a dict (DualVAE's caches)."""
     if state is None:
         return None
     if isinstance(state, torch.Tensor):
         state = {"state": state}
     elif not isinstance(state, dict):
-        state = {str(i): t for i, t in enumerate(state)}
+        state = {str(i): t for i, t in enumerate(leaves_of(state))}
     return {n: t.detach().float().cpu() for n, t in state.items()}
 
 
-def device_step(model, params, state, batch, draws, kinks):
-    """(loss, {leaf: gradient on the CPU}, new state as ``flat_state``) of
-    one step of an id-only model on its own device, from copies of
-    ``params``, ``state``, ``batch`` and ``draws``, under the trainer's
-    deterministic mode and ``kinks`` (a ``Kinks`` mode)."""
+def leaves_of(tree):
+    """The tensors of nested tuples (MICRO's two (vals, idx) graphs), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in leaves_of(x)]
+
+
+def device_step(model, params, state, batch, draws, kinks, flat=True):
+    """(loss, {leaf: gradient on the CPU}, new state as ``flat_state``, or
+    as the model returns it on its device with ``flat`` False) of one step
+    of an id-only model on its own device, from copies of ``params``,
+    ``state``, ``batch`` and ``draws``, under the trainer's deterministic
+    mode and ``kinks`` (a ``Kinks`` mode)."""
     from chaorec_tpu_torch.params import clone_to
     from chaorec_tpu_torch.train.loop import deterministic_mode
 
@@ -2326,7 +2397,7 @@ def device_step(model, params, state, batch, draws, kinks):
         loss.backward()
     grads = {n: (torch.zeros_like(t) if t.grad is None else t.grad).cpu()
              for n, t in leaves.items()}
-    return loss.item(), grads, flat_state(new_state)
+    return loss.item(), grads, flat_state(new_state) if flat else new_state
 
 
 def worst_share(got: dict, want: dict, rtol: float = STEP_RTOL):
@@ -2515,7 +2586,8 @@ def path_config(name: str, args):
         return Config(data_path=LINEAR_DATASET, seed=args.seed, **LIGHTGCN_CONFIG), LINEAR_DATASET
     ds = (LINEAR_DATASET if name in (LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
                                      + FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS
-                                     + TOWER3_MODELS + TOWER4_MODELS)
+                                     + TOWER3_MODELS + TOWER4_MODELS + REBUILD_MODELS
+                                     + (MMSSL_MODEL,))
           else FREEDOM_DATASET)
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
@@ -3129,11 +3201,13 @@ def family2_cli_run(device, ds, name, cfg, grid) -> tuple:
     return model, k4
 
 
-def adam_reference(p0, m0, v0, count, g, lr, eps):
-    """(p, m, v) of one Adam step (betas 0.9, 0.999) in float64 from (p0,
-    m0, v0) after ``count`` steps, on the gradient g."""
-    b1, b2 = 0.9, 0.999
+def adam_reference(p0, m0, v0, count, g, lr, eps, betas=(0.9, 0.999), weight_decay=0.0):
+    """(p, m, v) of one Adam step in float64 from (p0, m0, v0) after
+    ``count`` steps, on the gradient g (``weight_decay``: AdamW's, p0 scaled
+    by 1 - lr weight_decay first)."""
+    b1, b2 = betas
     p0, m0, v0, g = (x.double() for x in (p0, m0, v0, g))
+    p0 = p0 * (1 - lr * weight_decay)
     t = count + 1
     m = b1 * m0 + (1 - b1) * g
     v = b2 * v0 + (1 - b2) * g * g
@@ -4022,6 +4096,491 @@ def towers4_phases(args, device, ds) -> float:
     return time.perf_counter() - t_start
 
 
+class KnnPins:
+    """The neighbours of each kNN graph a step builds (``graphs/knn.knn_topk``
+    as LATTICE's and MICRO's batch 0 call it) and the kept entries of each
+    dense similarity (``models/lattice.dense_knn_sim``: every entry at least
+    the row's k-th), recorded on one step and held to on another, as
+    ``Cuts`` holds the cuts: two devices whose float32 similarities differ
+    by an ulp can pick another k-th neighbour where two nearly tie.
+    ``replay()`` gathers each row's similarities at the recorded neighbours
+    (differentiable, as top-k's values are), or keeps the recorded entries;
+    ``flips`` counts the rows whose own choice differs."""
+
+    def __init__(self):
+        self.picks, self.flips, self._next = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, mode):
+        from chaorec_tpu_torch.models import lattice, micro
+
+        topk, dense = lattice.knn_topk, lattice.dense_knn_sim
+        self.flips, self._next = 0, 0
+        if mode == "record":
+            self.picks = []
+
+        def pinned(own, replayed):
+            if mode == "record":
+                self.picks.append(own.detach().cpu())
+                return None
+            rec = self.picks[self._next].to(own.device)
+            self._next += 1
+            same = (torch.sort(own, 1).values == torch.sort(rec, 1).values
+                    if own.dtype != torch.bool else own == rec)
+            self.flips += int((~same).any(1).sum())
+            return replayed(rec)
+
+        def pinned_topk(features, k, row_chunk=4096):
+            vals, idx = topk(features, k, row_chunk)
+            f = features / torch.clamp(torch.linalg.vector_norm(features, dim=1, keepdim=True),
+                                       min=1e-12)
+            f = f.to(torch.float32)
+            out = pinned(idx, lambda rec: ((f @ f.t()).gather(1, rec), rec))
+            return (vals, idx) if out is None else out
+
+        def pinned_dense(feats, k):
+            f = lattice.l2norm(feats)
+            sim = f @ f.t()
+            kept = sim >= torch.topk(sim, k, dim=1).values[:, -1:]
+            out = pinned(kept, lambda rec: torch.where(rec, sim, torch.zeros_like(sim)))
+            return dense(feats, k) if out is None else out
+
+        lattice.knn_topk = micro.knn_topk = pinned_topk
+        lattice.dense_knn_sim = pinned_dense
+        try:
+            yield self
+        finally:
+            lattice.knn_topk = micro.knn_topk = topk
+            lattice.dense_knn_sim = dense
+        check(mode == "record" or self._next == len(self.picks),
+              f"a step built {self._next} kNN graphs, its record {len(self.picks)}")
+
+    def record(self):
+        return self._patched("record")
+
+    def replay(self):
+        return self._patched("replay")
+
+
+def epoch_batches(trainer, cfg, n: int):
+    """The first ``n`` batches of an epoch as the trainer makes them (each
+    ``index`` its position), completed by ``bpr_batch``."""
+    from chaorec_tpu_torch.data.sampling import make_edge_batches
+
+    return [trainer.bpr_batch(b) for b in
+            make_edge_batches(trainer.generator, trainer.edges, cfg.batch_size)[:n]]
+
+
+def graph_bytes(graph) -> str:
+    return ", ".join(f"{tuple(t.shape)} {str(t.dtype).replace('torch.', '')} "
+                     f"{t.numel() * t.element_size() / 1e6:.1f} MB" for t in leaves_of(graph))
+
+
+def rebuild_card_vs_cpu(name, cfg, sds, device) -> dict:
+    """Phase 61 for LATTICE or MICRO: batch 0 (the graph build, gradients
+    into the gated params) and batch 1 (on the CPU's batch-0 graph, read
+    detached) on the CPU and on the card from the same params and batches,
+    the card on the CPU's side of every kNN choice (``KnnPins``: the
+    learned graphs' neighbours and the originals built at construction,
+    the CPU's). Returns {batch: (loss rel, worst gradient share, name,
+    graph worst share or None, K2 launches, kNN rows flipped)}."""
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+    for attr in ("image_original", "text_original"):  # built at construction: the CPU's
+        setattr(card_model, attr, clone_to(getattr(cpu_model, attr), device))
+    trainer = Trainer(cpu_model, sds, cfg)
+    params = trainer.init_params()
+    batches = epoch_batches(trainer, cfg, 2)
+    rtol = BF16_STEP_RTOL if cfg.graph_compute_dtype == "bfloat16" else STEP_RTOL
+    out, state = {}, cpu_model.init_state()
+    for batch in batches:
+        pins = KnnPins()
+        c_loss, c_grads, c_state = device_step(cpu_model, params, state, batch, None,
+                                               pins.record(), flat=False)
+        reset_counts()
+        g_loss, g_grads, g_state = device_step(card_model, params, state, batch, None,
+                                               pins.replay(), flat=False)
+        k2, others = lse_counts(), other_counts(*kernel_wrappers()[3:6])
+        check(not any(others), f"{name} card step launched {others}")
+        worst = worst_share(g_grads, c_grads, rtol)
+        gated = max(g.abs().max().item() for k, g in g_grads.items()
+                    if k in cpu_model.epoch0_params)
+        check((gated > 0) == (batch.index == 0),
+              f"{name} batch {batch.index}: the gated params' gradient is {gated}")
+        graph = None
+        if batch.index == 0:  # the built graph: the same neighbours, values to the step bound
+            cg, gg = leaves_of(c_state), [t.cpu() for t in leaves_of(g_state)]
+            check(all(torch.equal(a, b) for a, b in zip(gg, cg) if not a.is_floating_point()),
+                  f"{name}: the card's graph has other neighbours")
+            graph = max(((a.float() - b.float()).abs().max().item()
+                         / (rtol * b.float().abs().max().item() + 1e-30))
+                        for a, b in zip(gg, cg) if a.is_floating_point())
+            state = c_state  # batch 1 reads the CPU's graph on both devices
+        out[batch.index] = (abs(g_loss - c_loss) / abs(c_loss), worst[0], worst[1], graph, k2,
+                            pins.flips)
+    return out
+
+
+def mmssl_card_vs_cpu(cfg, sds, device) -> dict:
+    """Phase 61 for MMSSL: MMSSL_STEP_BATCHES batches of ``mmssl_step`` on
+    the CPU and on the card, on the same batches and draws, each optimizer
+    step of the card's ("d": the discriminator's Adam, "main": the AdamW)
+    from the CPU's params and optimizer state before it, each batch from
+    the CPU's model state. Each gradient is held within the larger of the
+    step bounds and SPREAD_FACTOR times its spread (the CPU's step from
+    inputs nudged by 2^-24: the biases before the batch norms have a zero
+    gradient in exact arithmetic, and each device's is rounding noise);
+    the card's params and moments after each step against the float64 step
+    of the CPU's inputs with the card's own gradient (ADAM_STEP_RTOL of the
+    tensor's largest entry); the new count matrices and buffer users equal.
+    Returns {loss, grad, adam (worst shares), off (entries the steps left
+    more than STEP_RTOL of the tensor's max from the CPU's: a gradient within
+    rounding of 0, counted), buf_rows (top-item rows the card picked
+    otherwise; k_top 0 leaves them unused), steps, launches}."""
+    from chaorec_tpu_torch.models import build_model, mmssl
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train.loop import deterministic_mode
+
+    cpu_model = build_model(cfg, sds, "cpu")
+    models = {"cpu": cpu_model, "card": build_model(cfg, sds, device), "nudged": cpu_model}
+    fams = {k: m.trainer_cls(m, sds, cfg) for k, m in models.items()}
+    base = fams["cpu"]._base
+    params = {"cpu": base.init_params()}
+    for side in ("card", "nudged"):
+        params[side] = {k: v.detach().to(models[side].device, copy=True).requires_grad_()
+                        for k, v in params["cpu"].items()}
+    opts = {k: (f.make_optimizer(params[k]), *f.gen_opts) for k, f in fams.items()}
+    hyper = {"d": (mmssl.MMSSLTrainer.D_LR, mmssl.MMSSLTrainer.D_BETAS, 0.0),
+             "main": (float(cfg.learning_rate), (0.9, 0.999), mmssl.MMSSLTrainer.WEIGHT_DECAY)}
+    index = {"main": 0, "d": 1}
+    nudge_gen = torch.Generator().manual_seed(61)
+
+    def names_of(side, j):
+        mine = {id(p) for grp in opts[side][j].param_groups for p in grp["params"]}
+        return [k for k, p in params[side].items() if id(p) in mine]
+
+    def set_side(side, inputs, states):
+        on = models[side].device
+        with torch.no_grad():
+            for k, p in params[side].items():
+                x = inputs[k]
+                if side == "nudged":
+                    x = x * (1 + 2.0 ** -24 * torch.randn(x.shape, generator=nudge_gen))
+                p.copy_(x)
+        for j, st in states.items():
+            for k, (step, m, v) in st.items():
+                if step or opts[side][j].state.get(params[side][k]):
+                    set_adam_state(opts[side][j], params[side][k], step, m.to(on), v.to(on))
+
+    out = dict(loss=0.0, grad=(0.0, ""), adam=(0.0, ""), off=0, buf_rows=0, steps=[],
+               launches=0)
+    batches = epoch_batches(base, cfg, MMSSL_STEP_BATCHES)
+    mstate = cpu_model.init_state()
+    for batch in batches:
+        draws = cpu_model.draws(base.generator, batch)
+        start_params = {k: p.detach().clone() for k, p in params["cpu"].items()}
+        start_states = {j: {k: adam_state(o, params["cpu"][k]) for k in names_of("cpu", j)}
+                        for j, o in enumerate(opts["cpu"])}
+        rec, losses, states = {}, {}, {}
+
+        def hook(side):
+            def on_step(label):
+                j = index[label]
+                mine = names_of(side, j)
+                rec[side].append(dict(
+                    label=label, names=mine,
+                    params={k: p.detach().cpu().clone() for k, p in params[side].items()},
+                    grads={k: params[side][k].grad.detach().cpu().clone() for k in mine},
+                    state={k: adam_state(opts[side][j], params[side][k]) for k in mine}))
+                if side != "cpu":  # the next optimizer step from the CPU's inputs
+                    cpu = rec["cpu"][len(rec[side]) - 1]
+                    set_side(side, cpu["params"], {j: cpu["state"]})
+            return on_step
+
+        for side in ("cpu", "card", "nudged"):
+            on = models[side].device
+            rec[side] = []
+            if side != "cpu":
+                set_side(side, start_params, start_states)
+            reset_counts()
+            with deterministic_mode():
+                loss, states[side] = mmssl.mmssl_step(
+                    models[side], opts[side], params[side], clone_to(mstate, on),
+                    batch_to(batch, on), clone_to(draws, on), on_step=hook(side))
+                losses[side] = loss.item()
+            if side == "card":
+                out["launches"] += sum(other_counts())
+        out["steps"] = [e["label"] for e in rec["cpu"]]
+        check(all([e["label"] for e in rec[s]] == ["d", "main"] for s in rec),
+              f"MMSSL's optimizer steps ran {[e['label'] for e in rec['card']]}")
+        out["loss"] = max(out["loss"], abs(losses["card"] - losses["cpu"]) / max(
+            STEP_LOSS_RTOL * abs(losses["cpu"]),
+            SPREAD_FACTOR * abs(losses["nudged"] - losses["cpu"])))
+        done = {j: dict(s) for j, s in start_states.items()}
+        for i, c in enumerate(rec["cpu"]):
+            g = rec["card"][i]
+            j = index[c["label"]]
+            lr, betas, wd = hyper[c["label"]]
+            inputs = start_params if i == 0 else rec["cpu"][i - 1]["params"]
+            scale = max(w.abs().max().item() for w in c["grads"].values())
+            for k, want in c["grads"].items():
+                base_tol = STEP_RTOL * want.abs().max().item() + STEP_ATOL * scale
+                drift = (rec["nudged"][i]["grads"][k] - want).abs().max().item()
+                out["grad"] = max(out["grad"], ((g["grads"][k] - want).abs().max().item()
+                                                / max(base_tol, SPREAD_FACTOR * drift),
+                                                f"{k} of {c['label']}"))
+            for k in c["names"]:
+                step, m0, v0 = done[j][k]
+                p, m, v = adam_reference(inputs[k], m0, v0, step, g["grads"][k], lr, 1e-8,
+                                         betas, wd)
+                check(g["state"][k][0] == step + 1 == c["state"][k][0],
+                      f"MMSSL {c['label']}: {k}'s step count")
+                for what, got, want in (("", g["params"][k], p),
+                                        (" first moment", g["state"][k][1], m),
+                                        (" second moment", g["state"][k][2], v)):
+                    err = (got.double() - want).abs().max().item()
+                    share = err / (ADAM_STEP_RTOL * want.abs().max().item() + 1e-30)
+                    out["adam"] = max(out["adam"], (share, f"{k}{what} after {c['label']}"))
+                bound = STEP_RTOL * c["params"][k].abs().max().item() + STEP_ATOL
+                out["off"] += int(((g["params"][k] - c["params"][k]).abs() > bound).sum())
+            for k in set(inputs) - set(c["names"]):  # the other params did not move
+                check(torch.equal(g["params"][k], inputs[k]),
+                      f"MMSSL {c['label']} moved {k}, not its optimizer's")
+            done[j] = c["state"]
+        cs, gs = states["cpu"], {k: v.cpu() for k, v in states["card"].items()}
+        for k in ("image_cnt", "text_cnt", "buf_users", "buf_valid"):
+            check(torch.equal(gs[k], cs[k]), f"MMSSL batch {batch.index}: the card's {k} differs")
+        out["buf_rows"] += int(sum((gs[k] != cs[k]).any(1).sum() for k in ("buf_image",
+                                                                             "buf_text")))
+        mstate = cs
+        for side in ("card", "nudged"):  # each side's copies end as the CPU's
+            set_side(side, params["cpu"], {})
+    return out
+
+
+def micro_lse_phase(gen, device, ds, tau: float) -> dict:
+    """K2 at MICRO's shape on ``ds``: q the I unit rows of a modal view over
+    tau, k those rows and the I rows of the fused view ([n1; n2], 2I rows),
+    so that dq and dk both reach n1; the forward, and the gradients of n1
+    (dq + dk) and n2 (dk) through autograd, against the plain version under
+    phase 3's gates; then each kernel's time beside the plain version's, the
+    library route's and its bound. Returns {"max_abs_err": {kernel: err},
+    "micro": {kernel: timing}}."""
+    from chaorec_tpu_torch.ops.losses import catalog_logsumexp
+
+    n, e = ds.num_item, 64
+    n1, n2 = (torch.nn.functional.normalize(torch.randn(n, e, generator=gen, device=device),
+                                            dim=1).requires_grad_() for _ in range(2))
+    g = torch.randn(n, generator=gen, device=device)
+
+    def run():
+        out = catalog_logsumexp(n1, torch.cat([n1, n2]), tau)
+        return out, torch.autograd.grad(out, (n1, n2), g)
+
+    before = lse_counts()
+    got, grads = run()
+    torch.cuda.synchronize()
+    launched = tuple(a - c for a, c in zip(lse_counts(), before))
+    with plain_logsumexp():
+        want, wgrads = run()
+    share = tol_share(got, want, **LSE_TOL)
+    rel_tol = LSE_BWD_REL_TOL * max(1.0, 0.1 / tau)
+    errs = {"fwd": (got - want).abs().max().item()}
+    rels = []
+    for what, a, w in zip(("dq+dk (n1)", "dk (n2)"), grads, wgrads):
+        err = (a - w).abs().max().item()
+        errs["dk"] = max(errs.get("dk", 0.0), err)
+        if what.startswith("dq"):
+            errs["dq"] = err
+        rels.append((what, err / w.abs().max().item()))
+    say("k2micro", f"catalog_logsumexp at MICRO's shape ({n}, {2 * n}, {e}), temperature {tau}, "
+        f"q rows of k: launches fwd/dq/dk {launched}; fwd max abs err {errs['fwd']:.3e} "
+        f"({share:.3f} of rtol/atol 1e-5); " + ", ".join(
+            f"{w} max abs err / max |plain| {r:.2e}" for w, r in rels)
+        + f" (bound {rel_tol:g})")
+    check(launched == (1, 1, 1) and share <= 1.0 and max(r for _, r in rels) <= rel_tol,
+          "K2 at MICRO's shape disagrees")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    q, k = (n1 / tau).detach(), torch.cat([n1, n2]).detach()
+    results = {"max_abs_err": errs, "micro": lse_timings("k2micro", "micro", q, k, g, True, sms)}
+    del n1, n2, q, k, got, grads, want, wgrads
+    torch.cuda.empty_cache()
+    return results
+
+
+def rebuild_phases(args, device, ds) -> tuple:
+    """Phases 58-61: LATTICE's and MICRO's CLI runs on beauty (58; MICRO's
+    K2 launches counted; both exports served), each one's batch-0 build
+    (seconds, peak memory) and the profiles of a batch-0 step and of a
+    frozen step; MMSSL's CLI run through its trainer (59; the export
+    skipped) and its step's profile; K2 at MICRO's shape (60); batch 0 and
+    a frozen batch of LATTICE and MICRO, and MMSSL's two optimizer steps
+    over two batches, on the card against the CPU (61). Returns (their wall
+    seconds, K2's launches of MICRO's CLI run, K2's results at MICRO's
+    shape)."""
+    from chaorec_tpu_torch.models.mmssl import MMSSLTrainer
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    t_start = time.perf_counter()
+    groups = {"K2 (streaming logsumexp)": ("lse_",),
+              "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "copies (dtype casts)": ("copy",),
+              "top-k and sorts (the graph build)": ("topk", "sort", "radix", "bitonic"),
+              "index kernels (gathers, their scatters, index_add_)": (
+                  "index", "gather", "scatter"),
+              "reductions (norms, sums, softmax)": ("reduce_kernel", "softmax"),
+              "elementwise": ("elementwise",)}
+    # 58. rebuild: cli.run of LATTICE and MICRO, exports served ---------------
+    k2_run = (0, 0, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in REBUILD_MODELS:
+            cfg, _ = path_config(name, args)
+            art = os.path.join(tmp, f"{name}.npz")
+            terms = MICRO_TERMS if (name == "MICRO"
+                                    and cfg.graph_compute_dtype == "bfloat16") else 0
+            with BuildProbe() as built:
+                models, _ = linear_cli_run("rebuild", device, ds, name, cfg.replace(
+                    num_epoch=REBUILD_EPOCHS, log_dir=args.out_dir, export_artifact=art),
+                    first_combo(name)[1], lse_terms=terms)
+            if name == "MICRO":
+                k2_run = lse_counts()
+            model = models[0]
+            check(model.device.type == device.type, f"{name} is not on the card")
+            b = built.builds[0]
+            if name == "LATTICE":
+                rows = [t for t in (model._rt, model._rrt, model._rtr) if t is not None]
+                ui = (f"dense {model.graph.dense_r.dtype}" if model.graph.use_dense
+                      else "sparse")
+                layout = (f"U-I graph {ui}; "
+                          f"item graph {'dense bf16' if model.dense_items else '(vals, idx)'}; "
+                          f"row operators R^T, R R^T, R^T R: {graph_bytes(rows) or 'none'}")
+            else:
+                layout = (f"U-I graph sparse; modal graphs (vals, idx); full-catalog InfoNCE "
+                          f"{'through K2' if model.cl_fast else 'direct'}")
+            say("rebuild", f"{name} build: {b['seconds']:.3f} s, peak device memory "
+                f"{b['peak_gib']:.3f} GiB above what was allocated before it; {layout}")
+            reset_counts()
+            check_embeddings_serving("rebuild", art, ds, device, name)
+            check(not any(other_counts()), f"{name} serving launched {other_counts()}")
+            # the batch-0 build alone, then a batch-0 step and a frozen step
+            trainer = Trainer(model, ds, cfg)
+            params = trainer.init_params()
+            opt = trainer.make_optimizer(params)
+            build = model._build_item_adj if name == "LATTICE" else model._build_adjs
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                graph = build(params)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            say("rebuild", f"{name}'s batch-0 graph build alone (no gradient): {build_s:.3f} s, "
+                f"peak {peak:.3f} GiB above what was allocated before it; the carried state "
+                f"{graph_bytes(graph)}")
+            del graph
+            for batch in epoch_batches(trainer, cfg, 2):
+                what = "batch 0 (the graph build)" if batch.index == 0 else "a frozen batch"
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                device_profile("rebuild", f"one {name} training step on {what}, "
+                               f"{cfg.batch_size} edges at {LINEAR_DATASET} (forward, backward, "
+                               "Adam over every param)",
+                               lambda: trainer.train_step(params, opt, batch),
+                               os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step"
+                                            f"{batch.index}_profile.txt"), groups=groups)
+                k2, others = lse_counts(), other_counts(*kernel_wrappers()[3:6])
+                expected = (3 * terms,) * 3  # device_profile steps three times
+                say("rebuild", f"{name} step on {what}: peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K2 fwd/dq/dk "
+                    f"launches {k2} (expected {expected}), other kernels {others}")
+                check(k2 == expected and not any(others), f"{name} step launched {k2}, {others}")
+            del models, model, trainer, params, opt
+            torch.cuda.empty_cache()
+
+    # 59. mmssl: cli.run through MMSSLTrainer, the export skipped ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, _ = path_config(MMSSL_MODEL, args)
+        run_cfg = cfg.replace(num_epoch=REBUILD_EPOCHS, log_dir=args.out_dir,
+                              export_artifact=os.path.join(tmp, f"{MMSSL_MODEL}.npz"))
+        models, _ = linear_cli_run("mmssl", device, ds, MMSSL_MODEL, run_cfg,
+                                   first_combo(MMSSL_MODEL)[1])
+        check_export_skipped("mmssl", MMSSL_MODEL, run_cfg)
+    model = models[0]
+    check(model.device.type == device.type and model.trainer_cls is MMSSLTrainer,
+          "MMSSL is not on the card through its trainer")
+    say("mmssl", f"MMSSL's dense tables: raw_ui, ui_graph, iu_graph "
+        f"{graph_bytes((model.raw_ui, model.ui_graph, model.iu_graph))}; k_top {model.k_top} "
+        f"(every rebuild gives zero count matrices at 0); discriminator widths "
+        f"{model.num_item} -> {model.d_widths[0]} -> {model.d_widths[1]} -> 1")
+    family = MMSSLTrainer(model, ds, cfg)
+    params = family._base.init_params()
+    opt = family._base.make_optimizer(params)
+    batch = first_batch(family._base, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    device_profile("mmssl", f"one MMSSL training step of {cfg.batch_size} edges at "
+                   f"{LINEAR_DATASET} (the discriminator's loss with its gradient penalty and "
+                   "Adam step, then the generator loss and the AdamW step)",
+                   lambda: family.train_step(params, opt, batch),
+                   os.path.join(args.out_dir, "chip_smoke_mmssl_step_profile.txt"), groups=groups)
+    say("mmssl", f"MMSSL step peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; kernel launches {other_counts()}")
+    check(not any(other_counts()), f"MMSSL step launched {other_counts()}")
+    del models, model, family, params, opt
+    torch.cuda.empty_cache()
+
+    # 60. k2micro: K2 at MICRO's shape ---------------------------------------
+    gen = torch.Generator(device=device).manual_seed(args.seed + 60)
+    k2micro = micro_lse_phase(gen, device, ds, first_combo("MICRO")[0]["ssl_temp"])
+
+    # 61. rgstep: the card against the CPU on phase 32's seeded set -----------
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE, features=True)
+    for name in REBUILD_MODELS:
+        for dtype in ("float32", "bfloat16"):
+            cfg, _ = path_config(name, args)
+            cfg = cfg.replace(graph_compute_dtype=dtype)
+            r = rebuild_card_vs_cpu(name, cfg, sds, device)
+            rtol = BF16_STEP_RTOL if dtype == "bfloat16" else STEP_RTOL
+            loss_tol = BF16_LOSS_RTOL if dtype == "bfloat16" else STEP_LOSS_RTOL
+            terms = MICRO_TERMS if name == "MICRO" and dtype == "bfloat16" else 0
+            for index, (loss_rel, worst, where, graph, k2, flips) in r.items():
+                what = ("batch 0 (the graph build)" if index == 0
+                        else "batch 1 (the CPU's batch-0 graph, detached)")
+                say("rgstep", f"{name} at {dtype}, {what}, {cfg.batch_size} edges "
+                    f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}, 4096- and 384-wide "
+                    f"features), card vs CPU on the same params and batch, the CPU's original "
+                    f"graphs and kNN picks (rows the card's own picks differ: {flips}): loss rel "
+                    f"{loss_rel:.2e} (bound {loss_tol:g}); "
+                    f"worst gradient {where} at {worst:.3f} of its bound (rtol {rtol:g})"
+                    + ("" if graph is None else f"; the built graph at {graph:.3f} of its bound")
+                    + f"; K2 fwd/dq/dk launches {k2} (expected {(terms,) * 3})")
+                check(loss_rel <= loss_tol and worst <= 1.0 and (graph is None or graph <= 1.0)
+                      and k2 == (terms,) * 3, f"{name} at {dtype} card step disagrees")
+            torch.cuda.empty_cache()
+    cfg, _ = path_config(MMSSL_MODEL, args)
+    r = mmssl_card_vs_cpu(cfg.replace(graph_compute_dtype="float32"), sds, device)
+    say("rgstep", f"MMSSL, {MMSSL_STEP_BATCHES} batches of {cfg.batch_size} edges "
+        f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}), each optimizer step "
+        f"({', '.join(r['steps'])}) of the card's from the CPU's params and state, same batch, "
+        f"draws and model state: worst loss at {r['loss']:.3f} of its bound, worst gradient "
+        f"{r['grad'][1]} at {r['grad'][0]:.3f} of its bound (the larger of the step bounds and "
+        f"{SPREAD_FACTOR:g} x its spread from inputs nudged by 2^-24); the card's steps against "
+        f"float64 Adam and AdamW on its own gradient: worst {r['adam'][1]} at {r['adam'][0]:.3f} "
+        f"of {ADAM_STEP_RTOL:g} of the tensor's max; entries the steps left more than "
+        f"{STEP_RTOL:g} of the tensor's max from the CPU's (a gradient within rounding of 0) "
+        f"{r['off']}; count matrices and buffer users equal, top-item rows picked otherwise "
+        f"{r['buf_rows']} (unused at k_top 0); kernel launches {r['launches']}")
+    check(r["loss"] <= 1.0 and r["grad"][0] <= 1.0 and r["adam"][0] <= 1.0
+          and not r["launches"], "MMSSL card steps disagree")
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_start, k2_run, k2micro
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4421,11 +4980,16 @@ def main(argv=None) -> int:
     say("tw4step", f"phases 54-57's share of the run: {towers4_s:.1f} s, their "
         f"{len(TOWER4_MODELS)} models' determinism runs {towers4_det_s:.1f} s; "
         f"{towers4_s + towers4_det_s:.1f} s in all")
+    rebuild_s, micro_launches, k2micro = rebuild_phases(args, device, bds)
+    rebuild_det_s = sum(sum(det[n]["seconds"]) for n in REBUILD_MODELS + (MMSSL_MODEL,))
+    say("rgstep", f"phases 58-61's share of the run: {rebuild_s:.1f} s, their "
+        f"{len(REBUILD_MODELS) + 1} models' determinism runs {rebuild_det_s:.1f} s; "
+        f"{rebuild_s + rebuild_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
     # (the CF_Diff export of phase 4, the CLI runs of phases 7, 10, 14, 21,
-    # 24, 27, 39 and 43, the bf16 epoch of phase 13).
+    # 24, 27, 39, 43 and 58, the bf16 epoch of phase 13).
     fwd = dict(route="cuda", source="chaorec_tpu_torch/csrc/fused_mha.cu",
                replaces="chaorec_tpu/ops/pallas_attn.py:65")
     no_library = "no PyTorch call draws this Philox dropout mask"
@@ -4516,6 +5080,21 @@ def main(argv=None) -> int:
                     "all at this shape: the doubled edges by dim_E); AdaGCL's and Grade's "
                     "entries share one measurement of the shape; ms: 20 calls back to back; "
                     "graph_ms: 20 calls in one CUDA graph; library: torch.cumsum, one call"})
+    micro_n = bds.num_item
+    micro_tau = first_combo("MICRO")[0]["ssl_temp"]
+    for i, (kernel, line) in enumerate((("fwd", 44), ("dq", 95), ("dk", 116))):
+        entries.append({
+            "name": f"streaming_lse_{kernel}@micro", "route": "cuda",
+            "source": "chaorec_tpu_torch/csrc/streaming_lse.cu",
+            "replaces": f"chaorec_tpu/ops/pallas_lse.py:{line}",
+            "shape": [micro_n, 2 * micro_n, 64],
+            "temperature": micro_tau, "launches": micro_launches[i],
+            "max_abs_err": k2micro["max_abs_err"][kernel], **k2micro["micro"][kernel],
+            "note": f"launches: the MICRO CLI run's ({REBUILD_EPOCHS} epoch, {MICRO_TERMS} terms a "
+                    "step: each modal view's unit rows over the temperature against them and the "
+                    "fused view's, so dq and dk reach one table); library: torch.mm and "
+                    f"torch.logsumexp{'' if kernel == 'fwd' else ' and their autograd'}, timed "
+                    "together"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,8 +36,10 @@ from test_torch_mm_towers import FLAGS as MM_TOWERS
 from test_torch_mm_towers2 import FLAGS as MM_TOWERS2
 from test_torch_mm_towers3 import FLAGS as MM_TOWERS3
 from test_torch_mm_towers4 import FLAGS as MM_TOWERS4
+from test_torch_mmssl import FLAGS as MMSSL
 from test_torch_ncl import CFG as NCL
 from test_torch_ngcf_layergcn import LAYERGCN, NGCF_FLAGS
+from test_torch_rebuild_gated import FLAGS as REBUILD_GATED
 from test_torch_sgl import CFG as SGL
 from test_torch_simgcl import SIMGCL, XSIMGCL
 from test_torch_train import LEARN as CF_DIFF
@@ -51,7 +53,7 @@ CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF
            "BSPM": BSPM, "GFormer": GFORMER,
            **{n: CONTRASTIVE[n] for n in ("HCCF", "LightGCL", "VGCL", "GraphAug")},
            "AdaGCL": FAMILY2["AdaGCL"], "Grade": FAMILY2["Grade"], **MM_TOWERS, **MM_TOWERS2,
-           **MM_TOWERS3, **MM_TOWERS4}
+           **MM_TOWERS3, **MM_TOWERS4, **REBUILD_GATED, "MMSSL": MMSSL}
 SEED = 42
 # The id-only models' and the user-graph towers' and LightGT's CPU cases run
 # on one torch thread, as their own port tests do

@@ -282,10 +282,17 @@ class _Gated(RecModel):
 
 @pytest.mark.parametrize("gate", ["epoch0_params", "frozen_state_epoch"])
 def test_trainer_refuses_the_rebuild_gated_branch(tiny_dataset, gate):
+    """The trainer takes each gate of the rebuild-gated branch (LATTICE's
+    and MICRO's); what it still refuses, as the JAX trainer's
+    ``init_opt_state`` does, is ``epoch0_params`` together with
+    ``table_params``."""
     model = _Gated(tiny_dataset.num_user, tiny_dataset.num_item)
     setattr(model, gate, ("x",) if gate == "epoch0_params" else True)
-    with pytest.raises(NotImplementedError, match=gate):
-        tloop.Trainer(model, tiny_dataset, TConfig(Model="Gated"))
+    assert tloop.Trainer(model, tiny_dataset, TConfig(Model="Gated")).model is model
+    if gate == "epoch0_params":
+        model.table_params = ("x",)
+        with pytest.raises(ValueError, match="table_params and epoch0_params"):
+            tloop.Trainer(model, tiny_dataset, TConfig(Model="Gated"))
 
 
 # --- the CLI ----------------------------------------------------------------
