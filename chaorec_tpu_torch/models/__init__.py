@@ -1,7 +1,7 @@
 """Model registry: each builder turns ``(cfg, dataset, device)`` into a model.
 
-Counterpart of ``chaorec_tpu/models/__init__.py``. Only the models already
-ported are registered (``models/builders.py``); ROADMAP.md lists the rest.
+Counterpart of ``chaorec_tpu/models/__init__.py``: the same 54 names, each
+registered by its builder in ``models/builders.py``.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ from chaorec_tpu_torch.models.dccf import DCCF
 from chaorec_tpu_torch.models.ddrec import DDRec
 from chaorec_tpu_torch.models.dgcf import DGCF
 from chaorec_tpu_torch.models.dhcf import DHCF
+from chaorec_tpu_torch.models.diffmm import DiffMM
 from chaorec_tpu_torch.models.diffrec import DiffRec
 from chaorec_tpu_torch.models.dragon import DRAGON
 from chaorec_tpu_torch.models.dualgnn import DualGNN
@@ -50,6 +51,7 @@ from chaorec_tpu_torch.models.mentor import MENTOR
 from chaorec_tpu_torch.models.mgat import MGAT
 from chaorec_tpu_torch.models.mgcl import MGCL
 from chaorec_tpu_torch.models.mgcn import MGCN
+from chaorec_tpu_torch.models.mhrec import MHRec, mhrec_hyperedges
 from chaorec_tpu_torch.models.micro import MICRO
 from chaorec_tpu_torch.models.mmgcl import MMGCL
 from chaorec_tpu_torch.models.mmgcn import MMGCN
@@ -582,3 +584,27 @@ def _lightgt(cfg: Config, ds: RecDataset, device: torch.device) -> LightGT:
     return LightGT(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device),
                    torch.from_numpy(ds.history.values).to(device), v, t, cfg.dim_E,
                    cfg.reg_weight, cfg.n_layers, seed=cfg.seed)
+
+
+@register_model("DiffMM")
+def _diffmm(cfg: Config, ds: RecDataset, device: torch.device) -> DiffMM:
+    # main.py:360-362: DiffMM(num_user, num_item, train_data, dict, v_feat, t_feat, dim_E,
+    #   reg_weight, n_layers, ssl_alpha, ssl_temp, ris_lambda, e_loss, rebuild_k, device)
+    v, t = _feats(ds, device)
+    return DiffMM(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), _dense_x(ds, device),
+                  v, t, cfg.dim_E, cfg.reg_weight, cfg.n_layers, cfg.ssl_alpha, cfg.ssl_temp,
+                  cfg.ris_lambda, cfg.e_loss, cfg.rebuild_k,
+                  sample_compute_dtype=cfg.graph_compute_dtype)
+
+
+@register_model("MHRec")
+def _mhrec(cfg: Config, ds: RecDataset, device: torch.device) -> MHRec:
+    # main.py:374-376: MHRec(num_user, num_item, train_data, dict, v_feat, t_feat, dim_E,
+    #   reg_weight, ii_topk, uu_topk, num_hypernodes, n_layers, h_layers, ssl_temp, ssl_alpha,
+    #   beta1, beta2, device)
+    v, t = _feats(ds, device)
+    hv, ht = mhrec_hyperedges(cfg, ds, v, t, device)
+    return MHRec(ds.num_user, ds.num_item, _ui_graph(cfg, ds, device), torch.from_numpy(hv),
+                 torch.from_numpy(ht), v, t, cfg.dim_E, cfg.reg_weight, cfg.ii_topk, cfg.uu_topk,
+                 cfg.num_hypernodes, cfg.n_layers, cfg.h_layers, cfg.ssl_temp, cfg.ssl_alpha,
+                 cfg.beta1, cfg.beta2, sample_compute_dtype=cfg.graph_compute_dtype)

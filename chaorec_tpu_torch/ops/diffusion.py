@@ -123,6 +123,13 @@ def snr(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
     return acp / (1.0 - acp)
 
 
+def snr_weight(sched: DiffusionSchedule, ts: torch.Tensor) -> torch.Tensor:
+    """The x0 loss's weight SNR(t-1) - SNR(t), 1 at t = 0 (where snr(t-1)
+    is not read; clamping keeps the index valid)."""
+    w = snr(sched, torch.clamp(ts - 1, min=0)) - snr(sched, ts)
+    return torch.where(ts == 0, torch.ones_like(w), w)
+
+
 def timestep_probs(state: Tuple[torch.Tensor, torch.Tensor], steps: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(probs (steps,), ready): importance weights sqrt(E[loss^2]) per step,
@@ -180,12 +187,7 @@ def loss_from_draws(sched: DiffusionSchedule,
     x_t = q_sample(sched, x_start, ts, noise) if sched.noise_scale != 0.0 else x_start
     out = denoise_fn(x_t, ts)
     mse = torch.mean((x_start - out) ** 2, dim=1)
-    if sched.noise_scale != 0.0:
-        # snr(ts - 1) is not read where ts == 0; clamping keeps the index valid
-        weight = snr(sched, torch.clamp(ts - 1, min=0)) - snr(sched, ts)
-        weight = torch.where(ts == 0, torch.ones_like(weight), weight)
-    else:
-        weight = torch.ones_like(mse)
+    weight = snr_weight(sched, ts) if sched.noise_scale != 0.0 else torch.ones_like(mse)
     reloss = weight * mse
     new_state = update_lt_history(state, ts, reloss.detach(), weights)
     loss = torch.sum((reloss / pt) * weights) / torch.clamp(torch.sum(weights), min=1.0)

@@ -6,13 +6,19 @@ index vector ``flat_idx`` (E,) over S segments:
 
     seg_sum(values)[s] = sum_{j: flat_idx[j] == s} values[j]
     seg_gather(x)[j]   = x[flat_idx[j]]
+    seg_edge_weighted_sum(edge_emb, alpha)[s]
+                       = sum_{j: flat_idx[j] == s} alpha[j] edge_emb[edge(j)]
 
 ``seg_sum`` permutes the values into segment order, takes their prefix sum
 (``ops/prefix_scan.prefix_cumsum``: the CUDA kernel ``csrc/prefix_scan.cu``
 on the card) and differences it at the segment pointers. Each is the
 other's transpose, so the backward of ``seg_sum`` is a gather and the
 backward of ``seg_gather`` is the ``seg_sum`` primal, through the prefix
-kernel again. The index arguments get no gradient.
+kernel again. ``seg_edge_weighted_sum`` is MHRec's hypergraph message
+sum: slot j of a (He, k) incidence belongs to hyperedge j // k, and the
+forward gathers the edges' rows in segment order, weighs them and takes
+the same prefix; its backward is two gathers. The index arguments get no
+gradient.
 
 ``SegmentBags`` sums segments another way, each one on its own: in order,
 a bag of at most ``BAG_CHUNK`` rows at a time, then the bags
@@ -30,8 +36,9 @@ list, ``EdgeMatrix`` with weights fixed at build (GUME's float32 graphs),
 weights). Both sum with ``SegmentBags`` in each orientation, so the
 backward of one orientation is the other's forward, in a fixed order. The
 ELL + overflow bucket layout, ``auto_cap`` and the lane-packed (grouped)
-forms are TPU gather layouts and are not ported; ``seg_edge_weighted_sum``
-comes with MHRec (ROADMAP).
+forms are TPU gather layouts and are not ported, and so is the JAX
+package's column-major slot order of ``seg_edge_weighted_sum`` (a TPU lane
+layout): the port takes the incidence's slots row by row.
 """
 
 from __future__ import annotations
@@ -128,6 +135,65 @@ def seg_gather(x: torch.Tensor, flat_idx: torch.Tensor, perm: torch.Tensor,
     if ptr.shape[0] != x.shape[0] + 1:
         raise ValueError(f"ptr has {ptr.shape[0]} entries, x {x.shape[0]} rows")
     return _SegGather.apply(x, flat_idx, perm, ptr)
+
+
+def _sews_primal(edge_emb: torch.Tensor, alpha: torch.Tensor, perm: torch.Tensor,
+                 edge_perm: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
+    """The weighted edge rows in segment order, in fp32, then the prefix and
+    its difference at the pointers: (S, D) fp32."""
+    v = (alpha[perm][:, None] * edge_emb[edge_perm]).to(torch.float32)
+    cs = torch.empty((v.shape[0] + 1, v.shape[1]), dtype=torch.float32, device=v.device)
+    cs[0] = 0.0
+    prefix_cumsum(v, out=cs[1:])
+    return cs[ptr[1:]] - cs[ptr[:-1]]
+
+
+class _SegEdgeWeightedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, edge_emb, alpha, flat_idx, perm, edge_perm, ptr):
+        ctx.save_for_backward(edge_emb, alpha, flat_idx)
+        return _sews_primal(edge_emb, alpha, perm, edge_perm, ptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        edge_emb, alpha, flat_idx = ctx.saved_tensors
+        he, d = edge_emb.shape
+        g_slots = g[flat_idx].to(torch.float32).view(he, -1, d)  # (He, k, D)
+        a32 = alpha.to(torch.float32).view(he, -1)
+        d_edge = d_alpha = None
+        if ctx.needs_input_grad[0]:
+            d_edge = (a32[:, :, None] * g_slots).sum(1).to(edge_emb.dtype)
+        if ctx.needs_input_grad[1]:
+            d_alpha = (edge_emb.to(torch.float32)[:, None, :] * g_slots).sum(2)
+            d_alpha = d_alpha.reshape(-1).to(alpha.dtype)
+        return d_edge, d_alpha, None, None, None, None
+
+
+def seg_edge_weighted_sum(edge_emb: torch.Tensor, alpha: torch.Tensor, flat_idx: torch.Tensor,
+                          perm: torch.Tensor, edge_perm: torch.Tensor,
+                          ptr: torch.Tensor) -> torch.Tensor:
+    """``out[s] = sum_{j: flat_idx[j] == s} alpha[j] * edge_emb[j // k]``
+    (fp32, (S, D)) without a (He k, D) message tensor: the fused message sum
+    of hypergraph attention (MHRec, Model/MHRec.py:37-89).
+
+    ``flat_idx`` is the (He, k) incidence's node slots row by row
+    (``h_nodes.reshape(-1)``), ``alpha`` (He k,) their weights in that
+    order, ``(perm, ptr)`` from ``build_segment_transpose(flat_idx, S)``
+    and ``edge_perm = perm // k``, the hyperedge of each slot in segment
+    order. Forward: one gather of He-row edge embeddings in segment order,
+    weighted, into the fp32 prefix (``prefix_cumsum``, K4 on the card).
+    Backward, two gathers of the cotangent at the slots' nodes:
+    ``d edge_emb[e] = sum_j alpha[e k + j] g[flat_idx[e k + j]]`` and
+    ``d alpha[m] = edge_emb[m // k] . g[flat_idx[m]]``, returned in the
+    inputs' dtypes.
+
+    Its precision is ``seg_sum``'s (a global fp32 prefix): right for
+    zero-mean messages, not for non-negative scalar sums, which stay on
+    ``index_add_`` (MHRec's softmax denominators do).
+    """
+    if alpha.shape[0] % edge_emb.shape[0]:
+        raise ValueError(f"{alpha.shape[0]} slots over {edge_emb.shape[0]} hyperedges")
+    return _SegEdgeWeightedSum.apply(edge_emb, alpha, flat_idx, perm, edge_perm, ptr)
 
 
 @dataclass(frozen=True)

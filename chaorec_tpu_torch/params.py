@@ -8,9 +8,10 @@ package then computes the same thing in both. ``clone_to`` copies params or
 state to a device (the trainer's host copy of the best epoch, and back to
 the card for export). ``load_frozen`` puts another package's frozen
 construction-time tensors (MMGCN's and MVGAE's, which their builders draw
-from a seed and no optimizer steps) in place of a model's own. Dicts, tuples and lists are walked; their structure
-is kept. bf16 leaves (``--relaxed_precision bf16`` tables) keep their dtype
-and bits.
+from a seed and no optimizer steps) in place of a model's own. Dicts,
+tuples (named ones too: DiffMM's rebuilt graphs) and lists are walked;
+their structure is kept. bf16 leaves (``--relaxed_precision bf16`` tables)
+keep their dtype and bits.
 """
 
 from __future__ import annotations
@@ -21,11 +22,18 @@ import numpy as np
 import torch
 
 
+def _rebuilt(tree, items):
+    """A tuple, named tuple or list of ``tree``'s type holding ``items``."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*items)
+    return type(tree)(items)
+
+
 def from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(from_numpy(v, device) for v in tree)
+        return _rebuilt(tree, [from_numpy(v, device) for v in tree])
     if tree is None:
         return None
     # np.array copies, so the tensor owns its memory and is writable
@@ -41,7 +49,7 @@ def to_numpy(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(to_numpy(v) for v in tree)
+        return _rebuilt(tree, [to_numpy(v) for v in tree])
     if tree is None:
         return None
     return tree.detach().cpu().numpy()
@@ -53,7 +61,7 @@ def clone_to(tree: Any, device: torch.device | str) -> Any:
     if isinstance(tree, dict):
         return {k: clone_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(clone_to(v, device) for v in tree)
+        return _rebuilt(tree, [clone_to(v, device) for v in tree])
     if tree is None:
         return None
     return tree.detach().to(device, copy=True)

@@ -112,7 +112,19 @@ published width with random weights from ``--seed``:
   k's own table) and MMSSL (a WGAN-GP discriminator over (2B, I) rows with
   its Adam, then the generator's AdamW, optimizers made anew each epoch;
   dense fp32 (U, I) products); LATTICE's and MICRO's embeddings exported
-  and served, MMSSL's export skipped (its trainer keeps no weights).
+  and served, MMSSL's export skipped (its trainer keeps no weights);
+- the diffusion family trainers, each at its Model_YAML file's first combo
+  on the same beauty-sized set, an epoch of three phases: DiffMM (two
+  (I + 10 -> 1000 -> I) denoisers over the user rows with a fresh Adam, the
+  modal U-I graphs rebuilt from a bf16 reverse process, 1 GCN layer and two
+  full-catalog contrasts a step through the streaming logsumexp kernels)
+  and MHRec (one hyperedge a train edge a modality, 22 nodes; two (U + I +
+  10 -> 1000 -> U + I) denoisers, each with its own fresh Adam; the
+  incidence rebuilt as each hyperedge's top 2 nodes of a 20-step bf16
+  reverse process; 2 hypergraph attention layers a modality whose message
+  sums and slot gathers go through the prefix-sum kernel, 3 GCN layers,
+  four contrasts a step through the streaming logsumexp kernels); neither
+  exported (their trainers keep no weights).
 
 Phases, each printing its own lines:
 
@@ -232,10 +244,10 @@ Phases, each printing its own lines:
             the six at the beauty-sized set (bf16 operator and R), split
             into the index kernels, the GEMMs and the copy kernels (bdot's
             fp32 casts); peak memory
-34. determinism  each of the 51 trained models twice from a fresh trainer on one
-            seed at the path's shapes (CF_Diff and DiffRec one epoch, the
-            others 20 steps), then an evaluation: equal loss bits and equal
-            rank lists, one JSON line per model with both runs' seconds;
+34. determinism  each of the 53 trained models twice from a fresh trainer on
+            one seed at the path's shapes (CF_Diff, DiffRec, DiffMM and MHRec
+            one epoch, the others 20 steps), then an evaluation: equal loss
+            bits and equal rank lists, one JSON line per model with both runs' seconds;
             the seconds phases 30-33 and the family's six models here added
 35. idonly  MultVAE, MacridVAE, DualVAE, DiffRec, DHCF, LightGODE, SelfCF,
             FKAN_GCF and MCLN cli.run, 1 epoch each at their first combo on
@@ -394,6 +406,34 @@ Phases, each printing its own lines:
             spread, the card's steps against float64 Adam and AdamW on its
             own gradient, the new count matrices equal; the seconds phases
             58-61 and the three's determinism runs added
+62. diffmm DiffMM cli.run through its trainer_cls, 1 epoch (K2 launches: 2
+            terms a phase-C step, each kernel counted; none elsewhere), the
+            epoch split into phases A, B and C (the device synchronized at
+            each end), --export_artifact skipped with the JAX CLI's warning;
+            its build's seconds and peak; one phase-A step and one phase-C
+            step on the graph the run rebuilt under the profiler (device
+            time by kernel group, idle share, peak memory)
+63. mhrec  MHRec likewise (K2: 4 terms a phase-C step; K4: 8 a phase-C
+            step, counted by input dtype)
+64. k2diff the streaming logsumexp at the family's two contrast shapes
+            (1024 rows of one tower against the U or I rows of another,
+            temperature 0.1) against the plain version and its autograd at
+            phase 3's gates, then each kernel's time beside the plain
+            version's, the library route's and its bound
+65. k4mh   K4 at MHRec's shape (He x 2 slots by 64) with fp32 and bf16
+            input against prefix_cumsum_reference and a float64 prefix
+            under phase 20's gate, the same bits twice, and its times;
+            seg_edge_weighted_sum at that shape against its float64 sum
+66. dfstep each optimizer step of DiffMM and MHRec over two batches of
+            each phase (phase A's denoiser Adams, phase C's main Adam) on the
+            card against the CPU on phase 32's seeded set at float32, the
+            card from the CPU's params and state, on the CPU's draws, phase-B
+            picks and item kNN (the rows whose card picks differ counted):
+            gradients within the larger of the step bounds and 4 x their
+            spread, the card's Adam steps against float64 Adam on its own
+            gradient, the other params unchanged, K2's and K4's launches a
+            step; the seconds phases 62-66 and the two's determinism runs
+            added
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -600,14 +640,24 @@ REBUILD_EPOCHS = 1
 # K2 terms a MICRO step at bf16 (each modal view against h); k needs a gradient in each
 MICRO_TERMS = 2
 MMSSL_STEP_BATCHES = 2  # phase 61 holds MMSSL's two optimizer steps over this many batches
+# phases 62-66: the diffusion family trainers' three-phase epochs (denoisers
+# with fresh Adams, a rebuild without gradient, BPR batches on the rebuilt
+# graph), on the beauty-sized set with features; neither exports
+DIFFUSION_MODELS = ("DiffMM", "MHRec")
+DIFFUSION_EPOCHS = 1
+# K2 terms a phase-C step (DiffMM's two contrasts, MHRec's four); k needs a gradient in each
+DIFFUSION_TERMS = {"DiffMM": 2, "MHRec": 4}
+DIFFUSION_STEP_BATCHES = 2  # phase 66 holds each phase's optimizer steps over this many batches
 # phase 46: a card optimizer step's params and moments against the float64
 # Adam step of the CPU's state with the card's own gradient (rounding only)
 ADAM_STEP_RTOL = 1e-5
 DET_MODELS = ("CF_Diff", "FREEDOM", "SGL", "NCL", "DGCF", "DCCF", "MGAT", "BPR", "LightGCN",
               "SimGCL", "XSimGCL", "NGCF", "LayerGCN") + IDONLY_MODELS + FAMILY_TRAINED + (
               FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS + TOWER3_MODELS + TOWER4_MODELS
-              + REBUILD_MODELS + (MMSSL_MODEL,))
-USER_ROW_MODELS = ("CF_Diff", "DiffRec")
+              + REBUILD_MODELS + (MMSSL_MODEL,) + DIFFUSION_MODELS)
+# the models phase 34 runs a whole epoch of: the user-rows models, and the
+# diffusion family, whose epoch is its three phases
+WHOLE_EPOCH_MODELS = ("CF_Diff", "DiffRec") + DIFFUSION_MODELS
 DET_STEPS = 20
 
 
@@ -1703,24 +1753,29 @@ def k4_hold(phase: str, gen, device, shape, dtype=torch.float32, runs: int = 2) 
     return err_plain
 
 
-def k4_times(phase: str, gen, device, name: str, m: int, d: int) -> dict:
-    """K4's time at (m, d): 20 calls back to back (``ms``) and in one CUDA
-    graph (``graph_ms``), beside the plain version's, torch.cumsum's and
-    the bound (8 M D bytes over the card's memory rate)."""
+def k4_times(phase: str, gen, device, name: str, m: int, d: int,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """K4's time at (m, d) with ``dtype`` input: 20 calls back to back
+    (``ms``) and in one CUDA graph (``graph_ms``), beside the plain
+    version's, the library's (torch.cumsum to float32, one call) and the
+    bound (the input's bytes and the float32 output's over the card's memory
+    rate)."""
     from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum, prefix_cumsum_reference
 
-    x = torch.randn((m, d), generator=gen, device=device)
-    out = torch.empty_like(x)
-    bms, by = bound_ms(m * d, 8 * m * d)
+    x = torch.randn((m, d), generator=gen, device=device).to(dtype)
+    out = torch.empty(x.shape, dtype=torch.float32, device=device)
+    nbytes = m * d * (x.element_size() + 4)
+    bms, by = bound_ms(m * d, nbytes)
     r = dict(ms=cuda_ms(lambda: prefix_cumsum(x, out=out), 20),
              graph_ms=graph_ms(lambda: prefix_cumsum(x, out=out), 20),
              plain_ms=cuda_ms(lambda: prefix_cumsum_reference(x), 5),
-             library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5), bound_ms=bms, bound_by=by)
-    say(phase, f"prefix_cumsum ({m}, {d}) {name}: kernel {r['ms']:.4f} ms (20 calls back "
-        f"to back; {r['graph_ms']:.4f} ms as a CUDA graph of 20 calls), plain "
-        f"{r['plain_ms']:.4f} ms, library (torch.cumsum) {r['library_ms']:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}: 8 M D bytes over 3.35 TB/s), {100 * bms / r['ms']:.1f}% of it "
-        f"({100 * bms / r['graph_ms']:.1f}% in the graph)")
+             library_ms=cuda_ms(lambda: torch.cumsum(x, 0, dtype=torch.float32), 5),
+             bound_ms=bms, bound_by=by)
+    say(phase, f"prefix_cumsum ({m}, {d}) {str(dtype)[6:]} {name}: kernel {r['ms']:.4f} ms (20 "
+        f"calls back to back; {r['graph_ms']:.4f} ms as a CUDA graph of 20 calls), plain "
+        f"{r['plain_ms']:.4f} ms, library (torch.cumsum to float32) {r['library_ms']:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB over 3.35 TB/s), "
+        f"{100 * bms / r['ms']:.1f}% of it ({100 * bms / r['graph_ms']:.1f}% in the graph)")
     return r
 
 
@@ -2078,14 +2133,16 @@ def linear_dataset(args):
     return ds
 
 
-def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0):
+def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0, k4_steps: int = 0):
     """One ``cli.run`` of a model on ``ds`` whose path reaches no kernel (the
     linear-GCN family's, the id-only models'), where no kernel launch is
-    expected, or (``lse_terms``, MICRO's at bf16) K2 only, each of its
-    forward, dq and dk ``lse_terms`` times a training step; prints each
+    expected, or (``lse_terms``, MICRO's at bf16, the diffusion family's) K2,
+    each of its forward, dq and dk ``lse_terms`` times a training step, and
+    (``k4_steps``, MHRec's) K4 that many times a training step; prints each
     epoch's loss, walls and peak memory, each operator's build and the
     export's wall. Returns (models, operators)."""
     from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
 
     probe = EpochProbe()
     logging.getLogger().addFilter(probe)
@@ -2099,7 +2156,7 @@ def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0):
     finally:
         logging.getLogger().removeFilter(probe)
     run_s = time.perf_counter() - t0
-    k2, others = lse_counts(), other_counts(*kernel_wrappers()[3:6])
+    k2, k4, others = lse_counts(), prefix_cumsum.launches, other_counts(*kernel_wrappers()[3:])
     for op in built.ops:
         say(phase, f"{name}: {describe_op(op)}")
     for e, ep in enumerate(probe.epochs):
@@ -2112,14 +2169,17 @@ def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0):
     n_batches = math.ceil((ds.num_user if user_rows else ds.num_edges) / cfg.batch_size)
     exported = f" + export {export.seconds:.3f} s" if cfg.export_artifact else ""
     expected = (cfg.num_epoch * n_batches * lse_terms,) * 3
+    k4_expected = cfg.num_epoch * n_batches * k4_steps
     launched = (f"streaming_lse fwd/dq/dk launches {k2} (expected {expected}: {lse_terms} terms "
-                f"a step), other kernels {others} (expected none)" if lse_terms else
+                f"a step), prefix_cumsum launches {k4} (expected {k4_expected}: {k4_steps} a "
+                f"step), other kernels {others} (expected none)" if lse_terms or k4_steps else
                 f"kernel launches {other_counts()} (expected none: no TPU kernel lies on this "
                 "path)")
     say(phase, f"{name} cli.run {combo}: {cfg.num_epoch} epochs x {n_batches} batches of "
         f"{cfg.batch_size} {'users' if user_rows else 'edges'}{exported}: {run_s:.3f} s wall; "
         + launched)
-    check(k2 == expected and not any(others), f"{name} launched {k2} and {others}")
+    check(k2 == expected and k4 == k4_expected and not any(others),
+          f"{name} launched {k2}, {k4} and {others}")
     check(len(probe.epochs) == cfg.num_epoch, f"{len(probe.epochs)} epochs logged")
     check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
     check(sorted(best) == [5, 10, 20] and all(
@@ -2587,7 +2647,7 @@ def path_config(name: str, args):
     ds = (LINEAR_DATASET if name in (LINEAR_MODELS + IDONLY_MODELS + FAMILY_MODELS
                                      + FAMILY2_MODELS + TOWER_MODELS + TOWER2_MODELS
                                      + TOWER3_MODELS + TOWER4_MODELS + REBUILD_MODELS
-                                     + (MMSSL_MODEL,))
+                                     + (MMSSL_MODEL,) + DIFFUSION_MODELS)
           else FREEDOM_DATASET)
     return Config(Model=name, data_path=ds, seed=args.seed).replace(**first_combo(name)[0]), ds
 
@@ -2634,13 +2694,13 @@ def seeded_run(cfg, ds, device, steps=None):
 
 def determinism_phase(args, device, datasets) -> dict:
     """Phase 34: each model twice from a fresh Trainer on one seed at the
-    path's shapes (the user-rows models one epoch, the others DET_STEPS
-    steps), then an evaluation: the losses' bits and the rank lists must be
+    path's shapes (the user-rows models and the diffusion family one epoch,
+    the others DET_STEPS steps), then an evaluation: the losses' bits and the rank lists must be
     equal. One JSON line per model; returns {model: that line}."""
     out = {}
     for name in DET_MODELS:
         cfg, ds_name = path_config(name, args)
-        steps = None if name in USER_ROW_MODELS else DET_STEPS
+        steps = None if name in WHOLE_EPOCH_MODELS else DET_STEPS
         (l1, r1, s1), (l2, r2, s2) = (seeded_run(cfg, datasets[ds_name], device, steps)
                                       for _ in range(2))
         line = {"determinism": name, "steps": "1 epoch" if steps is None else steps,
@@ -4300,7 +4360,7 @@ def mmssl_card_vs_cpu(cfg, sds, device) -> dict:
                     set_side(side, cpu["params"], {j: cpu["state"]})
             return on_step
 
-        for side in ("cpu", "card", "nudged"):
+        for side in models:
             on = models[side].device
             rec[side] = []
             if side != "cpu":
@@ -4579,6 +4639,468 @@ def rebuild_phases(args, device, ds) -> tuple:
           and not r["launches"], "MMSSL card steps disagree")
     torch.cuda.empty_cache()
     return time.perf_counter() - t_start, k2_run, k2micro
+
+
+class PhaseTimer:
+    """While active, the seconds of the diffusion family's epoch phases, the
+    device synchronized at both ends of each: A (each denoiser epoch), B
+    (each rebuild), C (each BPR epoch), summed over the calls; and the
+    device's running peak memory at the end of each (``peak_gib``, the
+    latest call's: the phase where it rises set it)."""
+
+    def __enter__(self):
+        from chaorec_tpu_torch.models import diffmm, mhrec
+
+        self.seconds = {"A": 0.0, "B": 0.0, "C": 0.0}
+        self.peak_gib = {}
+        self.patched = [(diffmm.DiffusionFamilyTrainer, "denoise_epoch", "A"),
+                        (diffmm.DiffMM, "rebuild_graphs", "B"),
+                        (mhrec.MHRec, "rebuild_incidence", "B"),
+                        (diffmm.DiffusionFamilyTrainer, "bpr_epoch", "C")]
+        self.orig = [getattr(cls, n) for cls, n, _ in self.patched]
+        for (cls, n, ph), fn in zip(self.patched, self.orig):
+            setattr(cls, n, self._timed(fn, ph))
+        return self
+
+    def _timed(self, fn, ph):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds[ph] += time.perf_counter() - t0
+            self.peak_gib[ph] = torch.cuda.max_memory_allocated() / 2 ** 30
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for (cls, n, _), fn in zip(self.patched, self.orig):
+            setattr(cls, n, fn)
+
+
+class K4Dtypes:
+    """While active, the segment sums' calls of ``prefix_cumsum`` (one K4
+    launch each on the card) by input dtype, through a pass-through around
+    ``ops/ell.prefix_cumsum``."""
+
+    def __enter__(self):
+        from chaorec_tpu_torch.ops import ell
+
+        self.ell, self.orig, self.counts = ell, ell.prefix_cumsum, {}
+
+        def tallied(v, out=None):
+            key = str(v.dtype).replace("torch.", "")
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self.orig(v, out=out)
+
+        ell.prefix_cumsum = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.ell.prefix_cumsum = self.orig
+
+
+def mhrec_k4_steps(cfg) -> int:
+    """K4 launches of one MHRec training step: per hypergraph layer and
+    modality, ``seg_edge_weighted_sum``'s forward (fp32 input) and the
+    backward of ``seg_gather`` (its input at the slot rows' dtype)."""
+    return 2 * 2 * cfg.h_layers
+
+
+def diffusion_lse_phase(gen, device, ds, tau: float) -> dict:
+    """K2 at the diffusion family's two contrast shapes on ``ds``: 1024 unit
+    rows of one table over tau (q, gathered) against the U or I unit rows
+    of another (k), both with gradient; the forward, dq and dk against the
+    plain version and its autograd under phase 3's gates, then each kernel's
+    time beside the plain version's, the library route's and its bound.
+    Returns {"max_abs_err": {kernel: err}, "user": {kernel: timing}, "item": ...}."""
+    from chaorec_tpu_torch.ops.streaming_lse import (streaming_logsumexp,
+                                                     streaming_logsumexp_reference)
+
+    errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
+    results = {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for side, n in (("user", ds.num_user), ("item", ds.num_item)):
+        shape = (1024, n, 64, tau, True)
+        q, k, g = lse_inputs(gen, shape, device)
+        before = lse_counts()
+        got = streaming_logsumexp(q, k)
+        grads = torch.autograd.grad(got, (q, k), g)
+        torch.cuda.synchronize()
+        launched = tuple(a - c for a, c in zip(lse_counts(), before))
+        want = streaming_logsumexp_reference(q, k)
+        wgrads = torch.autograd.grad(want, (q, k), g)
+        share = tol_share(got, want, **LSE_TOL)
+        errs["fwd"] = max(errs["fwd"], (got - want).abs().max().item())
+        rel_tol = LSE_BWD_REL_TOL * max(1.0, 0.1 / tau)
+        rels = []
+        for kernel, a, w in zip(("dq", "dk"), grads, wgrads):
+            err = (a - w).abs().max().item()
+            errs[kernel] = max(errs[kernel], err)
+            rels.append(err / w.abs().max().item())
+        say("k2diff", f"catalog_logsumexp at the diffusion family's {side} shape (1024, {n}, 64), "
+            f"temperature {tau}, q and k from two tables: launches fwd/dq/dk {launched}; fwd max "
+            f"abs err {(got - want).abs().max().item():.3e} ({share:.3f} of rtol/atol 1e-5); "
+            f"dq, dk max abs err / max |plain| {rels[0]:.2e}, {rels[1]:.2e} (bound {rel_tol:g})")
+        check(launched == (1, 1, 1) and share <= 1.0 and max(rels) <= rel_tol,
+              f"K2 at the diffusion family's {side} shape disagrees")
+        results[side] = lse_timings("k2diff", side, q.detach(), k.detach(), g, True, sms)
+        del q, k, g, got, grads, want, wgrads
+        torch.cuda.empty_cache()
+    results["max_abs_err"] = errs
+    return results
+
+
+def mhrec_scan_phase(gen, device, cfg, ds) -> dict:
+    """K4 at MHRec's shape on ``ds`` (He x num_hypernodes slots, one
+    hyperedge a train edge, by dim_E): fp32 input (``seg_edge_weighted_sum``'s
+    forward) and bf16 input (``seg_gather``'s backward at bf16 slot rows)
+    against prefix_cumsum_reference and a float64 prefix under phase 20's
+    gate, the same bits twice, and their times; then ``seg_edge_weighted_sum``
+    at that shape on the card (random incidence over the U + I nodes and
+    the sentinel, exp weights, N(0, 1) edge rows) against its float64 plain
+    sum, within twice the prefix gate (a difference of two prefixes). Returns
+    {"fp32": timing, "bf16": timing, "max_abs_err": {dtype: err}, "shape": (M, D)}."""
+    from chaorec_tpu_torch.ops.ell import build_segment_transpose, seg_edge_weighted_sum
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+
+    k, d = min(int(cfg.num_hypernodes), ds.num_user + ds.num_item), cfg.dim_E
+    he, n_nodes = ds.num_edges, ds.num_user + ds.num_item
+    m = he * k
+    out = {"shape": (m, d), "max_abs_err": {}}
+    for key, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        out["max_abs_err"][key] = k4_hold("k4mh", gen, device, (m, d), dtype)
+        out[key] = k4_times("k4mh", gen, device, f"mhrec[{key}]", m, d, dtype)
+    h = torch.randint(0, n_nodes + 1, (he, k), generator=gen, device=device)
+    edge = torch.randn((he, d), generator=gen, device=device)
+    alpha = torch.exp(0.5 * torch.randn(m, generator=gen, device=device))
+    flat = h.reshape(-1)
+    perm, ptr = build_segment_transpose(flat, n_nodes + 1)
+    before = prefix_cumsum.launches
+    got = seg_edge_weighted_sum(edge, alpha, flat, perm, perm // k, ptr)
+    torch.cuda.synchronize()
+    msgs = alpha.double()[:, None] * edge.double().repeat_interleave(k, 0)
+    exact = torch.zeros((n_nodes + 1, d), dtype=torch.float64, device=device).index_add_(
+        0, flat, msgs)
+    prefix = torch.cumsum(msgs[perm], 0)
+    atol = 2 * scan_atol(prefix, m)
+    err = (got.double() - exact).abs().max().item()
+    say("k4mh", f"seg_edge_weighted_sum ({he} hyperedges x {k} slots over {n_nodes} nodes and "
+        f"the sentinel, D {d}): {prefix_cumsum.launches - before} K4 launch, max abs err vs "
+        f"float64 {err:.3e} (bound {atol:.3e}: twice the prefix gate of its running total)")
+    check(prefix_cumsum.launches == before + 1 and err <= atol,
+          "seg_edge_weighted_sum disagrees with its float64 sum")
+    del h, edge, alpha, msgs, exact, prefix, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def diffusion_card_vs_cpu(name, cfg, sds, device) -> dict:
+    """Phase 66 for DiffMM or MHRec on the seeded set ``sds`` at a float32
+    graph: DIFFUSION_STEP_BATCHES phase-A steps of each denoiser Adam, the
+    CPU's phase B, then DIFFUSION_STEP_BATCHES phase-C steps of the main
+    Adam, each optimizer step of the card's (and of a CPU copy whose inputs
+    are nudged by 2^-24) from the CPU's params and that optimizer's state
+    before it, on the CPU's batch, negatives and draws; the card on the
+    CPU's phase-B picks and (MHRec) the CPU's item kNN picks, the CPU's
+    segment sums in K4's summation order (``kernel_order_prefix``). Each
+    gradient within the larger of the step bounds and SPREAD_FACTOR times
+    its spread from the nudged copy and (MHRec) from the CPU's step with its
+    prefixes summed in float64; the card's Adam step against float64
+    Adam on its own gradient; params outside the step's optimizer unchanged
+    on the card. Returns {loss, grad, adam (worst shares and where), steps
+    (optimizer labels in order), flips (users or hyperedges whose card
+    phase-B picks differ from the CPU's), k2 and k4 (the card's launches
+    a phase-C step)}."""
+    from chaorec_tpu_torch.data.sampling import make_epoch_batches
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.models.diffmm import DENOISERS, denoiser_names
+    from chaorec_tpu_torch.models.mhrec import REBUILD_CHUNK
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train.loop import ADAM_BETAS, ADAM_EPS, deterministic_mode, grads_into
+
+    cpu_model, card_model = build_model(cfg, sds, "cpu"), build_model(cfg, sds, device)
+    if name == "MHRec":  # the CPU's item kNN picks
+        card_model.hyper_nodes_v = cpu_model.hyper_nodes_v.to(device)
+        card_model.hyper_nodes_t = cpu_model.hyper_nodes_t.to(device)
+    models = {"cpu": cpu_model, "card": card_model, "nudged": cpu_model}
+    base = cpu_model.trainer_cls(cpu_model, sds, cfg)._base
+    gen = base.generator
+    p0 = base.init_params()
+    params = {side: {k: v.detach().to(m.device, copy=True).requires_grad_()
+                     for k, v in p0.items()} for side, m in models.items()}
+    lr = float(cfg.learning_rate)
+    nudge_gen = torch.Generator().manual_seed(66)
+    # the sides' segment sums: the CPU's (and its nudged copy's) in K4's own
+    # order; MHRec's prefixes also summed in float64 and rounded once, another
+    # correct order, whose spread bounds a gradient too (as phase 46's)
+    ctx = {"cpu": kernel_order_prefix, "card": contextlib.nullcontext,
+           "nudged": kernel_order_prefix, "f64": lambda: plain_prefix_scan(float64=True)}
+    if name == "MHRec":
+        models["f64"] = cpu_model
+        params["f64"] = {k: v.detach().clone().requires_grad_() for k, v in p0.items()}
+    states = {}  # the CPU's Adam state of each optimizer, {name: (step, m, v)}
+    out = dict(loss=0.0, grad=(0.0, ""), adam=(0.0, ""), steps=[], flips=0, k2=set(), k4=set())
+
+    def step(label, names, loss_of):
+        pre = {k: p.detach().cpu().clone() for k, p in params["cpu"].items()}
+        st0 = states.get(label, {})
+        rec = {}
+        for side in models:
+            on = models[side].device
+            with torch.no_grad():
+                for k, p in params[side].items():
+                    x = pre[k]
+                    if side == "nudged":
+                        x = x * (1 + 2.0 ** -24 * torch.randn(x.shape, generator=nudge_gen))
+                    p.copy_(x.to(on))
+            opt = torch.optim.Adam([params[side][k] for k in names], lr=lr, betas=ADAM_BETAS,
+                                   eps=ADAM_EPS)
+            for k in names:
+                if k in st0:
+                    c, m0, v0 = st0[k]
+                    set_adam_state(opt, params[side][k], c, m0.to(on), v0.to(on))
+            reset_counts()
+            with deterministic_mode(), ctx[side]():
+                loss = loss_of(side, params[side])
+                grads_into(loss, [params[side][k] for k in names])
+                opt.step()
+            if side == "card" and label == "main":
+                out["k2"].add(lse_counts())
+                out["k4"].add(prefix_cumsum.launches)
+            rec[side] = dict(loss=loss.item(),
+                             grads={k: params[side][k].grad.detach().cpu().clone() for k in names},
+                             params={k: p.detach().cpu().clone() for k, p in params[side].items()},
+                             state={k: adam_state(opt, params[side][k]) for k in names})
+        c, g = rec["cpu"], rec["card"]
+        out["steps"].append(label)
+        out["loss"] = max(out["loss"], abs(g["loss"] - c["loss"]) / max(
+            STEP_LOSS_RTOL * abs(c["loss"]), SPREAD_FACTOR * max(
+                abs(o["loss"] - c["loss"]) for side, o in rec.items() if side not in ("cpu",
+                                                                                    "card"))))
+        scale = max(w.abs().max().item() for w in c["grads"].values())
+        others = [rec[side] for side in models if side not in ("cpu", "card")]
+        for k, want in c["grads"].items():
+            base_tol = STEP_RTOL * want.abs().max().item() + STEP_ATOL * scale
+            drift = max((o["grads"][k] - want).abs().max().item() for o in others)
+            out["grad"] = max(out["grad"], ((g["grads"][k] - want).abs().max().item()
+                                            / max(base_tol, SPREAD_FACTOR * drift),
+                                            f"{k} of {label}"))
+            count, m0, v0 = st0.get(k, (0, torch.zeros_like(want), torch.zeros_like(want)))
+            p, m, v = adam_reference(pre[k], m0, v0, count, g["grads"][k], lr, ADAM_EPS)
+            check(g["state"][k][0] == count + 1 == c["state"][k][0], f"{name} {label}: {k}'s count")
+            for what, got, ref in (("", g["params"][k], p), (" first moment", g["state"][k][1], m),
+                                   (" second moment", g["state"][k][2], v)):
+                err = (got.double() - ref).abs().max().item()
+                share = err / (ADAM_STEP_RTOL * ref.abs().max().item() + 1e-30)
+                out["adam"] = max(out["adam"], (share, f"{k}{what} after {label}"))
+        for k in set(pre) - set(names):
+            check(torch.equal(g["params"][k], pre[k]), f"{name} {label} moved {k}")
+        states[label] = c["state"]
+        with torch.no_grad():  # every side goes on from the CPU's params
+            for side in set(models) - {"cpu"}:
+                for k, p in params[side].items():
+                    p.copy_(c["params"][k].to(models[side].device))
+
+    # phase A: each denoiser Adam over its batches
+    bs = int(cfg.batch_size)
+    groups = ((DENOISERS, cpu_model.num_user, None),) if name == "DiffMM" else (
+        (("img_dn",), cpu_model.hyper_nodes_v.shape[0], cpu_model.hyper_nodes_v),
+        (("txt_dn",), cpu_model.hyper_nodes_t.shape[0], cpu_model.hyper_nodes_t))
+    for prefixes, n_rows, nodes in groups:
+        names = denoiser_names(params["cpu"], prefixes)
+        label = "+".join(prefixes)
+        for batch in make_epoch_batches(gen, n_rows, bs)[:DIFFUSION_STEP_BATCHES]:
+            draws = cpu_model.diffusion_draws(gen, batch.users.shape[0])
+
+            def loss_of(side, p, batch=batch, draws=draws, nodes=nodes, prefix=prefixes[0]):
+                m, on = models[side], models[side].device
+                d = clone_to(draws, on)
+                if name == "DiffMM":
+                    return m.diffusion_loss_with_draws(p, batch.users.to(on), batch.weights.to(on), d)
+                return m.hyper_diff_loss_with_draws(p, prefix, nodes[batch.users].to(on),
+                                                    batch.weights.to(on), d)
+
+            step(label, names, loss_of)
+    # phase B on the CPU; the card's own picks counted against it
+    with deterministic_mode(), torch.no_grad():
+        card_p = {k: v.detach().to(device) for k, v in params["cpu"].items()}
+        if name == "DiffMM":
+            state = cpu_model.rebuild_graphs(params["cpu"], gen)
+            for j, prefix in enumerate(DENOISERS):
+                own = card_model.rebuild_topk(card_p, prefix).cpu()
+                out["flips"] += int((own != state[j].topk).any(1).sum())
+            states_on = {"cpu": state, "card": clone_to(state, device)}
+        else:
+            h = {}
+            for prefix, nodes in (("img_dn", cpu_model.hyper_nodes_v),
+                                  ("txt_dn", cpu_model.hyper_nodes_t)):
+                noise = torch.randn((-(-nodes.shape[0] // REBUILD_CHUNK), REBUILD_CHUNK,
+                                     cpu_model.num_nodes), generator=gen)
+                h[prefix] = cpu_model.rebuild_incidence(params["cpu"], prefix, nodes, None, noise)
+                own = card_model.rebuild_incidence(card_p, prefix, nodes.to(device), None,
+                                                   noise.to(device)).cpu()
+                out["flips"] += int((own != h[prefix]).any(1).sum())
+            states_on = {side: models[side].with_incidence(
+                models[side].init_state(), h["img_dn"].to(models[side].device),
+                h["txt_dn"].to(models[side].device)) for side in ("cpu", "card")}
+        states_on["nudged"] = states_on["f64"] = states_on["cpu"]
+    # phase C: the main Adam over every param but the denoisers
+    names = [k for k in params["cpu"] if k not in denoiser_names(params["cpu"], DENOISERS)]
+    for batch in epoch_batches(base, cfg, DIFFUSION_STEP_BATCHES):
+        draws = cpu_model.draws(gen, batch) if name == "MHRec" else None
+
+        def loss_of(side, p, batch=batch, draws=draws):
+            m, on = models[side], models[side].device
+            if name == "DiffMM":
+                return m.loss_bpr(p, states_on[side], batch_to(batch, on))
+            return m.loss_stateful_with_draws(p, states_on[side], batch_to(batch, on),
+                                              clone_to(draws, on))[0]
+
+        step("main", names, loss_of)
+    return out
+
+
+def diffusion_phases(args, device, ds) -> tuple:
+    """Phases 62-66: DiffMM's and MHRec's CLI runs on beauty through their
+    trainers (62-63: each epoch split into its phases, K2's and K4's
+    launches counted, the export skipped, a phase-A step and a phase-C step
+    on the run's rebuilt graph profiled), K2 at their two contrast shapes (64), K4 at MHRec's shape
+    with fp32 and bf16 input and ``seg_edge_weighted_sum`` against float64
+    (65), and each optimizer step of both on the card against the CPU (66).
+    Returns (their wall seconds, {model: (K2 fwd, dq, dk launches, K4
+    launches, K4 calls by input dtype)} of the CLI runs, K2's results, K4's
+    results)."""
+    from chaorec_tpu_torch.data.sampling import make_epoch_batches
+    from chaorec_tpu_torch.models.diffmm import DENOISERS, DiffusionFamilyTrainer
+    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
+    from chaorec_tpu_torch.train.loop import deterministic_mode
+
+    t_start = time.perf_counter()
+    groups = {"K2 (streaming logsumexp)": ("lse_",), "K4 (prefix scan)": ("lookback_scan",),
+              "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+              "copies (dtype casts)": ("copy",),
+              "sorts (top-k picks, the deterministic index sums)": ("sort", "radix", "bitonic"),
+              "index kernels (gathers, their scatters, index_add_)": (
+                  "index", "gather", "scatter"),
+              "reductions (norms, sums, softmax)": ("reduce_kernel", "softmax"),
+              "elementwise": ("elementwise",)}
+    launches = {}
+    # 62-63. diffmm, mhrec: cli.run through the family trainer -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in DIFFUSION_MODELS:
+            phase = name.lower()
+            cfg, _ = path_config(name, args)
+            run_cfg = cfg.replace(num_epoch=DIFFUSION_EPOCHS, log_dir=args.out_dir,
+                                  export_artifact=os.path.join(tmp, f"{name}.npz"))
+            k4_steps = mhrec_k4_steps(cfg) if name == "MHRec" else 0
+            trainers = []
+            init = DiffusionFamilyTrainer.__init__
+            DiffusionFamilyTrainer.__init__ = lambda self, *a: trainers.append(self) or init(
+                self, *a)
+            try:
+                with BuildProbe() as built, PhaseTimer() as split, K4Dtypes() as k4d:
+                    models, _ = linear_cli_run(phase, device, ds, name, run_cfg,
+                                               first_combo(name)[1],
+                                               lse_terms=DIFFUSION_TERMS[name], k4_steps=k4_steps)
+            finally:
+                DiffusionFamilyTrainer.__init__ = init
+            launches[name] = (*lse_counts(), prefix_cumsum.launches, dict(k4d.counts))
+            check_export_skipped(phase, name, run_cfg)
+            model = models[0]
+            check(model.device.type == device.type and type(model).__name__ == name,
+                  f"{name} is not on the card")
+            b = built.builds[0]
+            sec = split.seconds
+            shapes = (f"denoisers ({model.x.shape[1]} + 10 -> 1000 -> {model.x.shape[1]}) over "
+                      f"{model.num_user} user rows, rebuild_k {model.rebuild_k}"
+                      if name == "DiffMM" else
+                      f"hyperedges {tuple(model.hyper_nodes_v.shape)} a modality, denoisers "
+                      f"({model.num_nodes} + 10 -> 1000 -> {model.num_nodes}), "
+                      f"{model.num_hypernodes} nodes a rebuilt hyperedge")
+            say(phase, f"{name} build: {b['seconds']:.3f} s, peak device memory "
+                f"{b['peak_gib']:.3f} GiB above what was allocated before it; {shapes}; epoch "
+                f"split: phase A (denoisers, fresh Adams) {sec['A']:.3f} s, phase B (rebuild, no "
+                f"gradient) {sec['B']:.3f} s, phase C (BPR steps) {sec['C']:.3f} s; the running "
+                f"peak after each: " + ", ".join(f"{ph} {split.peak_gib[ph]:.2f} GiB"
+                                                 for ph in sorted(split.peak_gib))
+                + f"; K4 calls by input dtype {dict(k4d.counts)}")
+            # one step of each phase under the profiler, on the graph the
+            # run's epoch rebuilt (its picks set a phase-C step's sums)
+            family = model.trainer_cls(model, ds, cfg)
+            base = family._base
+            params = base.init_params()
+            main = base.make_optimizer(params)
+            base.model_state = trainers[0]._base.model_state
+            prefix, rows = ((DENOISERS, model.num_user) if name == "DiffMM"
+                            else (("img_dn",), model.hyper_nodes_v.shape[0]))
+            dn_opt = family.denoiser_adam(params, prefix)
+            ub = make_epoch_batches(base.generator, rows, cfg.batch_size)[0]
+            draws = model.diffusion_draws(base.generator, ub.users.shape[0])
+
+            def phase_a_step():
+                with deterministic_mode():
+                    loss = (model.diffusion_loss_with_draws(params, ub.users, ub.weights, draws)
+                            if name == "DiffMM" else model.hyper_diff_loss_with_draws(
+                                params, "img_dn", model.hyper_nodes_v[ub.users], ub.weights,
+                                draws))
+                    return family.denoise_step(dn_opt, loss)
+
+            batch = first_batch(base, cfg)
+            for what, fn in (("phase A", phase_a_step),
+                             ("phase C", lambda: base.train_step(params, main, batch))):
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                device_profile(phase, f"one {name} {what} step of {cfg.batch_size} "
+                               f"{'rows' if what == 'phase A' else 'edges'} at {LINEAR_DATASET}",
+                               fn, os.path.join(args.out_dir, f"chip_smoke_{phase}_"
+                                                f"{what[-1].lower()}_step_profile.txt"),
+                               groups=groups)
+                k2, k4 = lse_counts(), prefix_cumsum.launches
+                c_step = what == "phase C"  # device_profile steps three times
+                expected = ((3 * DIFFUSION_TERMS[name] * c_step,) * 3, 3 * k4_steps * c_step)
+                say(phase, f"{name} {what} step: peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K2 fwd/dq/dk "
+                    f"launches {k2}, K4 {k4} (expected {expected[0]}, {expected[1]})")
+                check((k2, k4) == expected and not any(other_counts(*kernel_wrappers()[3:])),
+                      f"{name} {what} step launched {k2}, {k4}")
+            del models, model, family, base, params, main, dn_opt, trainers
+            torch.cuda.empty_cache()
+
+    # 64. k2diff: K2 at the two contrast shapes ----------------------------
+    gen = torch.Generator(device=device).manual_seed(args.seed + 64)
+    k2diff = diffusion_lse_phase(gen, device, ds, first_combo("DiffMM")[0]["ssl_temp"])
+    check(first_combo("MHRec")[0]["ssl_temp"] == first_combo("DiffMM")[0]["ssl_temp"],
+          "DiffMM and MHRec share one temperature here")
+
+    # 65. k4mh: K4 at MHRec's shape, seg_edge_weighted_sum vs float64 ---------
+    k4mh = mhrec_scan_phase(gen, device, path_config("MHRec", args)[0], ds)
+
+    # 66. dfstep: each optimizer step on the card against the CPU -------------
+    sds = synthetic_dataset(LINEAR_DATASET, args.seed + 1, shape=STEP_SHAPE, features=True)
+    for name in DIFFUSION_MODELS:
+        cfg, _ = path_config(name, args)
+        cfg = cfg.replace(graph_compute_dtype="float32")
+        t0 = time.perf_counter()
+        r = diffusion_card_vs_cpu(name, cfg, sds, device)
+        terms, k4_steps = DIFFUSION_TERMS[name], mhrec_k4_steps(cfg) if name == "MHRec" else 0
+        say("dfstep", f"{name} at float32, {DIFFUSION_STEP_BATCHES} batches of each phase "
+            f"({sds.num_user} x {sds.num_item}, dim {cfg.dim_E}, 4096- and 384-wide features), "
+            f"optimizer steps {r['steps']}, each of the card's from the CPU's params and state, "
+            f"the CPU's draws, phase-B picks (rows the card's own picks differ: {r['flips']}) "
+            f"{'and item kNN ' if name == 'MHRec' else ''}: worst loss at {r['loss']:.3f} of "
+            f"its bound, worst gradient {r['grad'][1]} at {r['grad'][0]:.3f} of its bound (the "
+            f"larger of the step bounds and {SPREAD_FACTOR:g} x its spread from inputs nudged "
+            f"by 2^-24); the card's Adam steps against float64 Adam on its own gradient: worst "
+            f"{r['adam'][1]} at {r['adam'][0]:.3f} of {ADAM_STEP_RTOL:g} of the tensor's max; "
+            f"launches a phase-C step: K2 {sorted(r['k2'])}, K4 {sorted(r['k4'])}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(r["loss"] <= 1.0 and r["grad"][0] <= 1.0 and r["adam"][0] <= 1.0
+              and r["k2"] == {(terms,) * 3} and r["k4"] == {k4_steps},
+              f"{name} card steps disagree")
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t_start, launches, k2diff, k4mh
 
 
 def main(argv=None) -> int:
@@ -4985,11 +5507,16 @@ def main(argv=None) -> int:
     say("rgstep", f"phases 58-61's share of the run: {rebuild_s:.1f} s, their "
         f"{len(REBUILD_MODELS) + 1} models' determinism runs {rebuild_det_s:.1f} s; "
         f"{rebuild_s + rebuild_det_s:.1f} s in all")
+    diffusion_s, diffusion_launches, k2diff, k4mh = diffusion_phases(args, device, bds)
+    diffusion_det_s = sum(sum(det[n]["seconds"]) for n in DIFFUSION_MODELS)
+    say("dfstep", f"phases 62-66's share of the run: {diffusion_s:.1f} s, their "
+        f"{len(DIFFUSION_MODELS)} models' determinism runs {diffusion_det_s:.1f} s; "
+        f"{diffusion_s + diffusion_det_s:.1f} s in all")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
     # (the CF_Diff export of phase 4, the CLI runs of phases 7, 10, 14, 21,
-    # 24, 27, 39, 43 and 58, the bf16 epoch of phase 13).
+    # 24, 27, 39, 43, 58, 62 and 63, the bf16 epoch of phase 13).
     fwd = dict(route="cuda", source="chaorec_tpu_torch/csrc/fused_mha.cu",
                replaces="chaorec_tpu/ops/pallas_attn.py:65")
     no_library = "no PyTorch call draws this Philox dropout mask"
@@ -5095,6 +5622,35 @@ def main(argv=None) -> int:
                     "fused view's, so dq and dk reach one table); library: torch.mm and "
                     f"torch.logsumexp{'' if kernel == 'fwd' else ' and their autograd'}, timed "
                     "together"})
+    diff_tau = first_combo("DiffMM")[0]["ssl_temp"]
+    for model in DIFFUSION_MODELS:
+        for side, n in (("user", bds.num_user), ("item", bds.num_item)):
+            for i, (kernel, line) in enumerate((("fwd", 44), ("dq", 95), ("dk", 116))):
+                entries.append({
+                    "name": f"streaming_lse_{kernel}@{model.lower()}[{side}]", "route": "cuda",
+                    "source": "chaorec_tpu_torch/csrc/streaming_lse.cu",
+                    "replaces": f"chaorec_tpu/ops/pallas_lse.py:{line}", "shape": [1024, n, 64],
+                    "temperature": diff_tau, "launches": diffusion_launches[model][i],
+                    "max_abs_err": k2diff["max_abs_err"][kernel], **k2diff[side][kernel],
+                    "note": f"launches: the {model} CLI run's ({DIFFUSION_EPOCHS} epoch, "
+                            f"{DIFFUSION_TERMS[model]} terms a phase-C step, half of them at "
+                            "each shape); q: 1024 gathered unit rows of one tower over the "
+                            "temperature, k: the unit rows of another; DiffMM's and MHRec's "
+                            "entries share one measurement of each shape; library: torch.mm "
+                            f"and torch.logsumexp{'' if kernel == 'fwd' else ' and their autograd'}"
+                            ", timed together"})
+    for key, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        entries.append({
+            "name": f"prefix_scan@mhrec[{key}]", "route": "cuda",
+            "source": "chaorec_tpu_torch/csrc/prefix_scan.cu",
+            "replaces": "chaorec_tpu/ops/pallas_scan.py:49", "shape": list(k4mh["shape"]),
+            "dtype": dtype, "launches": diffusion_launches["MHRec"][4].get(dtype, 0),
+            "max_abs_err": k4mh["max_abs_err"][key], **k4mh[key],
+            "note": "launches: the MHRec CLI run's with this input dtype (seg_edge_weighted_sum's "
+                    "forward takes fp32 messages, seg_gather's backward the slot rows' bf16 "
+                    "cotangent; the run's total is the sum of the two); ms: 20 calls back to "
+                    "back; graph_ms: 20 calls in one CUDA graph; library: torch.cumsum to "
+                    "float32, one call"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,12 +26,14 @@ from test_torch_bspm import FIRST as BSPM
 from test_torch_contrastive import FLAGS as CONTRASTIVE
 from test_torch_dccf import CFG as DCCF
 from test_torch_dgcf import CFG as DGCF
+from test_torch_diffmm import FLAGS as DIFFMM
 from test_torch_diffrec import FLAGS as DIFFREC
 from test_torch_freedom import CFG as FREEDOM
 from test_torch_gformer import FIRST as GFORMER
 from test_torch_idonly import FLAGS as IDONLY
 from test_torch_lightgcn import BPR, LIGHTGCN
 from test_torch_mgat import CFG as MGAT
+from test_torch_mhrec import FLAGS as MHREC
 from test_torch_mm_towers import FLAGS as MM_TOWERS
 from test_torch_mm_towers2 import FLAGS as MM_TOWERS2
 from test_torch_mm_towers3 import FLAGS as MM_TOWERS3
@@ -53,7 +55,8 @@ CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF
            "BSPM": BSPM, "GFormer": GFORMER,
            **{n: CONTRASTIVE[n] for n in ("HCCF", "LightGCL", "VGCL", "GraphAug")},
            "AdaGCL": FAMILY2["AdaGCL"], "Grade": FAMILY2["Grade"], **MM_TOWERS, **MM_TOWERS2,
-           **MM_TOWERS3, **MM_TOWERS4, **REBUILD_GATED, "MMSSL": MMSSL}
+           **MM_TOWERS3, **MM_TOWERS4, **REBUILD_GATED, "MMSSL": MMSSL, "DiffMM": DIFFMM,
+           "MHRec": MHREC}
 SEED = 42
 # The id-only models' and the user-graph towers' and LightGT's CPU cases run
 # on one torch thread, as their own port tests do
@@ -68,8 +71,8 @@ def _run(ds, name, device, seed=SEED, epochs=2):
     """(per-epoch losses, rank list) of a fresh trainer: pre_epoch and a
     training epoch per epoch, as ``Trainer.run`` does, then ``evaluate``.
     A family trainer's epochs are its own (GFormer's resampling groups,
-    AdaGCL's and Grade's multi-optimizer steps) on the standard trainer it
-    wraps; BSPM, which trains nothing, is built
+    AdaGCL's and Grade's multi-optimizer steps, DiffMM's and MHRec's three
+    phases) on the standard trainer it wraps; BSPM, which trains nothing, is built
     from an empty spectral cache and only evaluated."""
     cfg = TConfig(**CONFIGS[name], seed=seed, num_epoch=epochs)
     if name == "BSPM":
