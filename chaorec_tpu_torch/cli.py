@@ -17,9 +17,18 @@ The run is on the first CUDA card unless ``--device cpu`` (or ``device=
 "cpu"`` in ``run``) asks for the CPU, where the kernels' plain versions
 run; without a card, a run that did not ask for the CPU raises before any
 work. The data is loaded with both modality feature tables, as the JAX
-CLI loads it. The JAX CLI's checkpoint grid cursor comes with
-checkpointing: until then the trainer refuses ``--checkpoint_dir``,
-``--checkpoint_every``, ``--mesh_shape`` and ``--profile_dir``.
+CLI loads it.
+
+The grid cursor, as the JAX CLI's: with ``--checkpoint_dir`` and
+``--checkpoint_every`` N > 0, each combo checkpoints under
+``<checkpoint_dir>/combo_<idx>`` (``train/loop.py``), and each finished
+combo's best metrics are recorded in ``<checkpoint_dir>/grid_cursor.json``
+(``{str(idx): {str(k): metrics}}``, written whole to a temporary file and
+renamed). A rerun skips the recorded combos, counts them in choosing the
+best combo, and resumes the unfinished one from its newest step; a cursor
+written by either package is read by the other. When the best combo came
+from the cursor there are no live weights to export: the JAX CLI's warning
+is logged and the export skipped. The trainer refuses ``--mesh_shape``.
 ``--max_dispatch_batches`` and ``--eval_pipeline`` parse and are ignored:
 they tune the JAX trainer's chunked dispatch and eval pipeline for the
 TPU, which ROADMAP lists under "Do not port".
@@ -28,6 +37,7 @@ TPU, which ROADMAP lists under "Do not port".
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 from typing import Dict, List, Optional
@@ -42,6 +52,17 @@ from chaorec_tpu_torch.train.loop import Trainer, deterministic_mode, log_metric
 
 LOG_FORMAT = "%(asctime)s %(levelname)s %(message)s"
 DATE_FORMAT = "%a %d %b %Y %H:%M:%S"
+
+
+GRID_CURSOR = "grid_cursor.json"
+
+
+def write_cursor(path: str, done: Dict[str, Dict]) -> None:
+    """The grid cursor ``done`` into ``path``, whole or not at all."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(done, f)
+    os.replace(tmp, path)
 
 
 def setup_logging(cfg: Config) -> None:
@@ -90,21 +111,40 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
     best_params = None
     best_metrics = None
     best_export = None
+    cursor_path = (os.path.join(cfg.checkpoint_dir, GRID_CURSOR)
+                   if cfg.checkpoint_dir and cfg.checkpoint_every > 0 else None)
+    done: Dict[str, Dict] = {}
+    if cursor_path and os.path.exists(cursor_path):
+        with open(cursor_path) as f:
+            done = json.load(f)
     for idx, hyper_param_dict in enumerate(combos):
         logging.info("========={}/{}: Parameters:{}=========".format(
             idx + 1, len(combos), hyper_param_dict))
         combo_cfg = cfg.replace(**hyper_param_dict)
-        model = build_model(combo_cfg, dataset, device)
-        trainer_cls = getattr(model, "trainer_cls", Trainer)
-        trainer = trainer_cls(model, dataset, combo_cfg)
-        current = trainer.run()
+        trainer = None
+        if cursor_path:
+            combo_cfg = combo_cfg.replace(
+                checkpoint_dir=os.path.join(cfg.checkpoint_dir, f"combo_{idx}"))
+        if str(idx) in done:
+            logging.info("combo %d already finished - skipping (grid cursor)", idx + 1)
+            current = {int(k): v for k, v in done[str(idx)].items()}
+        else:
+            model = build_model(combo_cfg, dataset, device)
+            trainer_cls = getattr(model, "trainer_cls", Trainer)
+            trainer = trainer_cls(model, dataset, combo_cfg)
+            current = trainer.run()
+            if cursor_path:
+                done[str(idx)] = {str(k): dict(v) for k, v in current.items()}
+                write_cursor(cursor_path, done)
         current_recall = current[20]["recall"] if 20 in current else (
             current[max(current)]["recall"])
         if best_performance is None or current_recall > best_performance:
             best_performance = current_recall
             best_params = dict(hyper_param_dict)
             best_metrics = current
-            if cfg.export_artifact:
+            # a combo from the cursor has no live weights
+            best_export = None
+            if cfg.export_artifact and trainer is not None:
                 # the JAX CLI's fallbacks: a family trainer that keeps no
                 # weights of its own (BSPM's, GFormer's) has none to export
                 best_host = getattr(trainer, "best_params_host", None)
@@ -118,7 +158,12 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
                 )
 
     if cfg.export_artifact:
-        model, params, mstate, snapshot = best_export
+        if best_export is None:
+            logging.warning("export_artifact: best combo resumed from the grid cursor - "
+                            "re-run it to export")
+            params = None
+        else:
+            model, params, mstate, snapshot = best_export
         if params is None:
             logging.warning("export_artifact: best combo's trainer kept no "
                             "weights - skipping export")

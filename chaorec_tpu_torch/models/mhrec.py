@@ -183,9 +183,17 @@ class MHRec(RecModel):
 
     def init_state(self, device: torch.device | str = "cpu",
                    generator: Optional[torch.Generator] = None) -> Dict:
-        return {"user": torch.zeros((self.num_user, self.dim_E), device=self.device),
-                "item": torch.zeros((self.num_item, self.dim_E), device=self.device),
-                "lay_v": None, "lay_t": None}
+        """Zero cached tables and placeholder layouts, those of an empty
+        incidence (every slot the sentinel) at the rebuilt one's shape:
+        phase B replaces them before any use, and the state keeps one
+        structure, which a checkpoint restores into."""
+        def empty(nodes):
+            return torch.full((nodes.shape[0], self.num_hypernodes), self.num_nodes,
+                              dtype=torch.int64, device=self.device)
+
+        state = {"user": torch.zeros((self.num_user, self.dim_E), device=self.device),
+                 "item": torch.zeros((self.num_item, self.dim_E), device=self.device)}
+        return self.with_incidence(state, empty(self.hyper_nodes_v), empty(self.hyper_nodes_t))
 
     # ---------------- phases A and B: the denoisers ----------------
     def dense_rows(self, nodes: torch.Tensor) -> torch.Tensor:

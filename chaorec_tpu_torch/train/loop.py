@@ -66,12 +66,23 @@ loss does not reach a param) before ``optimizer.step()``, for a model with
 ``epoch0_params`` only, so every other model's step is unchanged. As in the
 JAX trainer, ``epoch0_params`` and ``table_params`` are refused together.
 
+Checkpoint/resume, as the JAX trainer's (``train/checkpoint.py``): with
+``--checkpoint_dir`` and ``--checkpoint_every`` N > 0, ``run`` saves after
+every N-th epoch's early-stopping update (step = epochs done) the params,
+the Adam's state, the tables' moments and shared step count, the model
+state, the generator's state and the early-stopping cursor (``best_score``
+exact, not rounded to float32 as the JAX package stores it), and resumes
+from the newest step, so a resumed run gives the bits of an uninterrupted
+one. A checkpoint resumes on the device kind that wrote it (the CPU's and
+the card's generator states differ in shape). ``--profile_dir``: a
+``torch.profiler`` trace of epoch ``start_epoch + 1`` (its ``pre_epoch``,
+training and evaluation, the JAX trainer's window), written as Chrome-trace
+JSON; on the card it must hold device kernels.
+
 Not ported: the JAX trainer's chunked epoch dispatch, its serialize guard,
 its compile sharing through injected hyperparameters and its one-epoch-deep
-eval pipeline exist for the TPU and its remote link. Checkpointing, mesh
-training and the profiler hook come with the slices that need them: the
-trainer refuses ``--checkpoint_dir``, ``--checkpoint_every``,
-``--mesh_shape`` and ``--profile_dir`` (``UNPORTED_FLAGS``).
+eval pipeline exist for the TPU and its remote link. Mesh training comes
+with its slice: the trainer refuses ``--mesh_shape`` (``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -79,6 +90,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -93,17 +105,16 @@ from chaorec_tpu_torch.eval.ranking import gene_ranklist, rank_from_scores
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
 from chaorec_tpu_torch.ops.indexed_adam import init_table_state, table_adam_update
 from chaorec_tpu_torch.params import clone_to
+from chaorec_tpu_torch.train.checkpoint import CheckpointManager
 
 ADAM_BETAS = (0.9, 0.999)  # torch.optim.Adam defaults, as the reference uses
 ADAM_EPS = 1e-8
 # Flags the JAX trainer reads and this one does not yet: the trainer refuses
 # them rather than run without them. Each names the ROADMAP item that ports it.
 UNPORTED_FLAGS = {
-    "checkpoint_dir": "Queue 1 item 8 (checkpoint and grid cursor)",
-    "checkpoint_every": "Queue 1 item 8 (checkpoint and grid cursor)",
     "mesh_shape": "Queue 1 item 9 (multi-device)",
-    "profile_dir": "Queue 1 items 8-9 (the profiler hook comes with them)",
 }
+ADAM_MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
 @contextlib.contextmanager
@@ -140,6 +151,32 @@ def grads_into(loss: torch.Tensor, params) -> None:
     params = list(params)
     for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
         p.grad = torch.zeros_like(p) if g is None else g
+
+
+def optimizer_tree(optimizer: torch.optim.Optimizer, like: bool = False) -> Dict:
+    """An Adam's (or AdamW's) state as a checkpoint tree, one entry a param
+    in the param groups' order: whether it has state yet (torch's Adam makes
+    a param's state at its first step), its step count and its moments,
+    zeros where it has none. With ``like``, the stand-ins ``restore`` reads
+    shapes, dtypes and devices from: the params themselves, no copy."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    tree = {"has": torch.tensor([bool(optimizer.state.get(p)) for p in params], dtype=torch.bool),
+            "step": [], **{k: [] for k in ADAM_MOMENTS}}
+    for p in params:
+        st = {} if like else optimizer.state.get(p, {})
+        tree["step"].append(st.get("step", torch.zeros(())))
+        for k in ADAM_MOMENTS:
+            tree[k].append(p if like else st.get(k, torch.zeros_like(p)))
+    return tree
+
+
+def load_optimizer_tree(optimizer: torch.optim.Optimizer, tree: Dict) -> None:
+    """``optimizer_tree``'s state back into ``optimizer``: the params that
+    had state get it, the others none."""
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": tree["step"][i], **{k: tree[k][i] for k in ADAM_MOMENTS}}
+                   for i, has in enumerate(tree["has"].tolist()) if has}
+    optimizer.load_state_dict(sd)
 
 
 class EarlyStopping:
@@ -338,13 +375,94 @@ class Trainer:
                                       self.val_split, self.test_split)
         return val, test, rank_list
 
+    def checkpoint_tree(self, params: Params, optimizer: torch.optim.Optimizer,
+                        early_stopping: EarlyStopping, like: bool = False) -> Dict:
+        """What a checkpoint holds (with ``like``, the live structure a
+        restore fills): the params, the Adam's state, the tables' moments
+        and shared step count, the model state, the generator's state and
+        the early-stopping cursor (its metrics go in the JSON sidecar)."""
+        return {
+            "params": params,
+            "optimizer": optimizer_tree(optimizer, like),
+            "tables": self.table_state,
+            "table_count": self.table_count,
+            "mstate": self.model_state,
+            "rng": self.generator.get_state(),
+            "es": {"best_score": torch.tensor(early_stopping.best_score or 0.0,
+                                              dtype=torch.float64),
+                   "counter": torch.tensor(early_stopping.counter, dtype=torch.int64)},
+        }
+
+    def restore(self, ckpt: CheckpointManager, step: int, params: Params,
+                optimizer: torch.optim.Optimizer, early_stopping: EarlyStopping) -> None:
+        """Step ``step`` of ``ckpt`` into the live params (in place: the
+        optimizer holds them), the optimizer, the trainer's state and
+        ``early_stopping``."""
+        tree, metrics = ckpt.restore(
+            step, self.checkpoint_tree(params, optimizer, early_stopping, like=True),
+            self.device)
+        with torch.no_grad():
+            for k, v in tree["params"].items():
+                params[k].copy_(v)
+        load_optimizer_tree(optimizer, tree["optimizer"])
+        self.table_state = tree["tables"]
+        self.table_count.copy_(tree["table_count"])
+        self.model_state = tree["mstate"]
+        self.generator.set_state(tree["rng"])
+        if metrics is not None:
+            early_stopping.best_metrics = {int(k): v for k, v in metrics.items()}
+            early_stopping.best_score = float(tree["es"]["best_score"])
+            early_stopping.counter = int(tree["es"]["counter"])
+
+    def start_profile(self):
+        """A started ``torch.profiler`` over the CPU, and the card's kernels
+        when the trainer runs on one."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities, acc_events=True)  # one cycle: no warning
+        prof.start()
+        return prof
+
+    def stop_profile(self, prof, epoch: int) -> str:
+        """Ends ``prof`` and writes its Chrome trace into ``profile_dir``;
+        returns the file's path. On the card a trace without a device
+        kernel raises: the profiler could not record the card."""
+        from torch.autograd import DeviceType
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        if self.device.type == "cuda" and not any(
+                e.device_type == DeviceType.CUDA for e in prof.events()):
+            raise RuntimeError("--profile_dir: the profiler recorded no kernel on the card "
+                               "(CUDA activity unavailable); no trace written")
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir, f"epoch_{epoch + 1}.trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
     @deterministic_mode()
     def run(self) -> Dict:
         cfg = self.cfg
         params = self.init_params()
         optimizer = self.make_optimizer(params)
         early_stopping = EarlyStopping(patience=cfg.patience, verbose=True)
-        for epoch in range(cfg.num_epoch):
+        ckpt = None
+        start_epoch = 0
+        if cfg.checkpoint_dir and cfg.checkpoint_every > 0:
+            ckpt = CheckpointManager(cfg.checkpoint_dir)
+            latest = ckpt.latest_step()
+            if latest is not None:
+                self.restore(ckpt, latest, params, optimizer, early_stopping)
+                start_epoch = latest
+                logging.info("resumed from checkpoint at epoch %d", latest)
+        for epoch in range(start_epoch, cfg.num_epoch):
+            # the second epoch of this process: steady state, no build noise
+            prof = (self.start_profile() if cfg.profile_dir and epoch == start_epoch + 1
+                    else None)
             t0 = time.perf_counter()
             self.model.pre_epoch(params, epoch)
             loss = self.train_epoch(params, optimizer)
@@ -362,10 +480,20 @@ class Trainer:
                 # host copies: the optimizer updates params in place
                 self.best_params_host = clone_to(params, "cpu")
                 self.best_mstate_host = clone_to(self.model_state, "cpu")
+            if prof is not None:
+                self.stop_profile(prof, epoch)
+                logging.info("profiler trace written to %s", cfg.profile_dir)
+            if ckpt is not None and (epoch + 1) % cfg.checkpoint_every == 0:
+                ckpt.save(epoch + 1, self.checkpoint_tree(params, optimizer, early_stopping),
+                          metrics={str(k): dict(v) for k, v in
+                                   (early_stopping.best_metrics or {}).items()})
             if early_stopping.early_stop:
                 print("Early stopping")
                 break
         log_metrics("Best Test Metrics:", early_stopping.best_metrics)
+        # the CLI's export falls back to these when no epoch of this
+        # process was the best (a resume past the best epoch)
+        self.final_params = params
         return early_stopping.best_metrics
 
 

@@ -124,7 +124,11 @@ published width with random weights from ``--seed``:
   reverse process; 2 hypergraph attention layers a modality whose message
   sums and slot gathers go through the prefix-sum kernel, 3 GCN layers,
   four contrasts a step through the streaming logsumexp kernels); neither
-  exported (their trainers keep no weights).
+  exported (their trainers keep no weights);
+- checkpoint/resume through K1, K3 and K4 (FREEDOM and DGCF on the
+  sports-sized set, CF_Diff on the baby-sized one: a resumed run gives the
+  bits of an uninterrupted one), the supervisor relaunching a killed CLI
+  child into its checkpoint, and the ``--profile_dir`` trace.
 
 Phases, each printing its own lines:
 
@@ -434,6 +438,26 @@ Phases, each printing its own lines:
             gradient, the other params unchanged, K2's and K4's launches a
             step; the seconds phases 62-66 and the two's determinism runs
             added
+67. resume FREEDOM (K1, fp32 tables), CF_Diff (K3, dropout) and DGCF (K4,
+            its routing scores), each at its first combo through its
+            trainer with a checkpoint each epoch: 3 epochs uninterrupted,
+            and 2 epochs then a resume to 3 from the same directory; equal
+            loss bits, best metrics, params, Adam state, tables' moments and
+            step count, model state and generator state; the resumed run's
+            launches exactly one epoch's (counts reset just before, read
+            just after); save and restore seconds, checkpoint bytes, peak
+            memory
+68. elastic the sports-sized set written in the loader's format; python -m
+            chaorec_tpu_torch.elastic --retries 2 -- python -m
+            chaorec_tpu_torch.cli --Model FREEDOM ... --num_epoch 3
+            --checkpoint_every 1; the CLI child SIGKILLed as soon as
+            combo_0/step_1 exists: the supervisor relaunches it and exits
+            0, the relaunched log starts with its resume, its epoch lines
+            equal phase 67's uninterrupted run's, the grid cursor records
+            combo 0
+69. trace  FREEDOM 2 epochs with --profile_dir: epoch 2's Chrome trace holds
+            one row_adam_kernel event a launch of that epoch; its bytes,
+            and epoch 2's wall with and without the profiler
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -455,11 +479,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -5103,6 +5129,432 @@ def diffusion_phases(args, device, ds) -> tuple:
     return time.perf_counter() - t_start, launches, k2diff, k4mh
 
 
+# phases 67-69: a run resumed from its checkpoint against the uninterrupted
+# run, through K1 (FREEDOM's tables, their moments and step count in the
+# checkpoint), K3 (CF_Diff's Philox dropout seeds from the restored
+# generator) and K4 (DGCF's routing scores restored); the supervisor's
+# relaunch of a killed CLI child into its checkpoint; the profiler hook
+RESUME_MODELS = ("FREEDOM", "CF_Diff", "DGCF")
+RESUME_EPOCHS, RESUME_SPLIT = 3, 2  # 3 uninterrupted; 2, then resumed to 3
+ELASTIC_TIMEOUT_S = 420
+
+
+class CheckpointTimer:
+    """While active, the seconds of each checkpoint save
+    (``CheckpointManager.save``: the state to the host and the file) and
+    each restore (``Trainer.restore``: the file onto the card and the
+    copies into the live state), the device synchronized at both ends."""
+
+    def __enter__(self):
+        from chaorec_tpu_torch.train import checkpoint, loop
+
+        self.save_s, self.restore_s = [], []
+        self.patched = [(checkpoint.CheckpointManager, "save", self.save_s),
+                        (loop.Trainer, "restore", self.restore_s)]
+        self.orig = [getattr(cls, n) for cls, n, _ in self.patched]
+        for (cls, n, out), fn in zip(self.patched, self.orig):
+            setattr(cls, n, self._timed(fn, out))
+        return self
+
+    @staticmethod
+    def _timed(fn, out):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+            return res
+        return timed
+
+    def __exit__(self, *exc):
+        for (cls, n, _), fn in zip(self.patched, self.orig):
+            setattr(cls, n, fn)
+
+
+def tree_leaves(tree):
+    """The leaves of nested dicts, tuples and lists, None included, in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def same_bits(a, b) -> bool:
+    """Equal structure, dtypes, shapes and bits (bf16 compared as int16)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x is None or y is None:
+            if not (x is None and y is None):
+                return False
+        elif x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                *(t.view(torch.int16) if t.dtype == torch.bfloat16 else t for t in (x, y))):
+            return False
+    return True
+
+
+def log_messages(path: str) -> list:
+    """A CLI log file's messages, the date and level cut off."""
+    with open(path) as fh:
+        return [re.sub(r"^.*? (INFO|WARNING) ", "", line) for line in fh.read().splitlines()]
+
+
+def epoch_lines(messages: list) -> dict:
+    """{epoch: its lines from ``Epoch n, Loss`` through the metric tables}."""
+    out, cur = {}, None
+    for m in messages:
+        if mt := re.match(r"Epoch (\d+), Loss: ", m):
+            cur = out.setdefault(int(mt.group(1)), [])
+        elif m.startswith("epoch_time_s"):
+            cur = None
+        if cur is not None:
+            cur.append(m)
+    return out
+
+
+def resume_run(cfg, ds, device, ckpt: str, epochs: int, log_dir: str) -> dict:
+    """``cfg``'s trainer run to ``epochs`` epochs with a checkpoint each
+    epoch in ``ckpt`` (resumed from its newest step), logged into
+    ``log_dir``: the epochs' losses, the best metrics, the launches by
+    wrapper (counted from 0 just before ``run``), the seconds, the epochs'
+    walls and peak, the log's messages and the final state on the host."""
+    from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.params import clone_to
+    from chaorec_tpu_torch.train import loop
+
+    cfg = cfg.replace(num_epoch=epochs, checkpoint_dir=ckpt, checkpoint_every=1,
+                      log_dir=log_dir)
+    cli.setup_logging(cfg)
+    model = build_model(cfg, ds, device)
+    trainer = getattr(model, "trainer_cls", loop.Trainer)(model, ds, cfg)
+    base = getattr(trainer, "_base", trainer)
+    losses, opt = [], {}
+    epoch_fn, make = base.train_epoch, base.make_optimizer
+
+    def train_epoch(params, optimizer):
+        losses.append(epoch_fn(params, optimizer))
+        return losses[-1]
+
+    def make_optimizer(params):
+        opt["adam"] = make(params)
+        return opt["adam"]
+
+    base.train_epoch, base.make_optimizer = train_epoch, make_optimizer
+    probe = EpochProbe()
+    logging.getLogger().addFilter(probe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        best = trainer.run()
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeFilter(probe)
+    out = dict(losses=losses, best=best, seconds=time.perf_counter() - t0, epochs=probe.epochs,
+               launches={f.__name__: f.launches for f in kernel_wrappers()},
+               messages=log_messages(os.path.join(log_dir, f"{cfg.Model}_{cfg.data_path}.log")),
+               state=clone_to({"params": base.final_params,
+                               "adam": loop.optimizer_tree(opt["adam"]),
+                               "tables": base.table_state, "count": base.table_count,
+                               "mstate": base.model_state,
+                               "rng": base.generator.get_state()}, "cpu"),
+               cam_layers=getattr(model, "cam_layers", 0))
+    # the trainer and its wrapped methods hold each other: collect the cycle
+    # before the next run measures its peak
+    del trainer, base, model, opt, train_epoch, make_optimizer, epoch_fn, make
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def epoch_launches(cfg, ds, cam_layers: int) -> dict:
+    """Each wrapper's launches in one epoch of ``cfg`` (training and its
+    evaluation), read off the code as phases 7, 10 and 21 count them."""
+    counts = {f.__name__: 0 for f in kernel_wrappers()}
+    if cfg.Model == "CF_Diff":
+        n_batches = math.ceil(ds.num_user / cfg.batch_size)
+        evals = math.ceil(ds.num_user / cfg.eval_user_chunk) * cfg.steps * cam_layers
+        counts["fused_mha"] = n_batches * cam_layers + evals
+        counts["fused_mha_bwd"] = n_batches * cam_layers
+    elif cfg.Model == "FREEDOM":
+        counts["fused_row_adam"] = math.ceil(ds.num_edges / cfg.batch_size) * 2
+    else:
+        per_step, per_eval = scan_launches(cfg)
+        counts["prefix_cumsum"] = math.ceil(ds.num_edges / cfg.batch_size) * per_step + per_eval
+    return counts
+
+
+def write_loader_files(ds, root: str) -> str:
+    """``ds`` in the loader's format (``data/loading.py``) under
+    ``root/<ds.name>``: train.npy with the items offset by the users, val
+    and test rows [user, item...], both feature tables. Returns ``root``."""
+    d = os.path.join(root, ds.name)
+    os.makedirs(d)
+    train = ds.train_edges.astype(np.int64)
+    train[:, 1] += ds.num_user
+    np.save(os.path.join(d, "train.npy"), train)
+    for split in ("val", "test"):
+        users, pos = getattr(ds, f"{split}_users"), getattr(ds, f"{split}_pos")
+        rows = np.empty(len(users), dtype=object)
+        for j, u in enumerate(users):
+            rows[j] = [int(u)] + (pos.values[j, :pos.lengths[j]] + ds.num_user).tolist()
+        np.save(os.path.join(d, f"{split}.npy"), rows, allow_pickle=True)
+    np.save(os.path.join(d, "v_feat.npy"), ds.v_feat)
+    np.save(os.path.join(d, "t_feat.npy"), ds.t_feat)
+    return root
+
+
+def child_pids(pid: int) -> list:
+    """The processes whose parent is ``pid`` (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as fh:
+                    stat = fh.read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(d))
+    return out
+
+
+def kill_tree(pid: int) -> None:
+    """SIGKILL ``pid``'s descendants, then ``pid``."""
+    for kid in child_pids(pid):
+        kill_tree(kid)
+    with contextlib.suppress(ProcessLookupError):
+        os.kill(pid, signal.SIGKILL)
+
+
+def resume_phase(args, device, datasets) -> dict:
+    """Phase 67: FREEDOM (K1), CF_Diff (K3) and DGCF (K4), each at its
+    first combo through its trainer: RESUME_EPOCHS epochs uninterrupted,
+    and RESUME_SPLIT epochs then a resume to RESUME_EPOCHS from the same
+    directory, a checkpoint each epoch. Equal loss bits, best metrics,
+    params, Adam state, tables (moments and count), model state and
+    generator state; the resumed run's launches exactly one epoch's.
+    Returns {model: the resumed run's launches, and the uninterrupted run}."""
+    from chaorec_tpu_torch.train.checkpoint import CheckpointManager
+
+    out = {}
+    for name in RESUME_MODELS:
+        cfg, ds_name = path_config(name, args)
+        ds = datasets[ds_name]
+        logs = os.path.join(args.out_dir, "resume", name)
+        with tempfile.TemporaryDirectory() as tmp, CheckpointTimer() as timer:
+            full = resume_run(cfg, ds, device, os.path.join(tmp, "full"), RESUME_EPOCHS,
+                              os.path.join(logs, "full"))
+            first = resume_run(cfg, ds, device, os.path.join(tmp, "split"), RESUME_SPLIT,
+                               os.path.join(logs, "first"))
+            restore_mark = len(timer.restore_s)
+            rest = resume_run(cfg, ds, device, os.path.join(tmp, "split"), RESUME_EPOCHS,
+                              os.path.join(logs, "rest"))
+            step_dir = CheckpointManager(os.path.join(tmp, "split")).step_dir(RESUME_EPOCHS)
+            ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                             for f in os.listdir(step_dir))
+        one = epoch_launches(cfg, ds, full["cam_layers"])
+        state = {k: same_bits(full["state"][k], rest["state"][k]) for k in full["state"]}
+        say("resume", f"{name} ({ds_name}, {cfg.batch_size} a batch): {RESUME_EPOCHS} epochs "
+            f"uninterrupted {full['seconds']:.3f} s; {RESUME_SPLIT} epochs {first['seconds']:.3f} s, "
+            f"then resumed to {RESUME_EPOCHS} {rest['seconds']:.3f} s; losses "
+            f"{full['losses']} vs {first['losses'] + rest['losses']}")
+        say("resume", f"{name}: bit-equal after the resume: "
+            + ", ".join(f"{k} {v}" for k, v in state.items())
+            + f"; best metrics equal {rest['best'] == full['best']}")
+        say("resume", f"{name}: resumed run's launches "
+            f"{ {k: v for k, v in rest['launches'].items() if v} } (one epoch: "
+            f"{ {k: v for k, v in one.items() if v} }); uninterrupted "
+            f"{ {k: v for k, v in full['launches'].items() if v} }")
+        say("resume", f"{name}: save {np.mean(timer.save_s):.3f} s a checkpoint (min "
+            f"{min(timer.save_s):.3f}, max {max(timer.save_s):.3f}, {len(timer.save_s)} saves), "
+            f"restore {timer.restore_s[restore_mark]:.3f} s, checkpoint {ckpt_bytes} bytes "
+            f"({ckpt_bytes / 2 ** 20:.1f} MiB); resumed run's peak device memory "
+            f"{max(ep['peak_gib'] for ep in rest['epochs']):.2f} GiB (uninterrupted "
+            f"{max(ep['peak_gib'] for ep in full['epochs']):.2f})")
+        check(f"resumed from checkpoint at epoch {RESUME_SPLIT}" in rest["messages"],
+              f"{name}: the resumed run did not log its resume")
+        check(len(full["losses"]) == RESUME_EPOCHS and all(map(math.isfinite, full["losses"])),
+              f"{name}: losses {full['losses']}")
+        check(first["losses"] + rest["losses"] == full["losses"],
+              f"{name}: the resumed run's losses differ from the uninterrupted run's")
+        check(rest["best"] == full["best"], f"{name}: best metrics differ")
+        check(all(state.values()), f"{name}: state after the resume differs: {state}")
+        check(rest["launches"] == one and full["launches"] == {
+            k: RESUME_EPOCHS * v for k, v in one.items()} and first["launches"] == {
+            k: RESUME_SPLIT * v for k, v in one.items()},
+            f"{name}: launches {rest['launches']}, expected {one} an epoch")
+        check(len(timer.restore_s) == restore_mark + 1, f"{name}: restores {timer.restore_s}")
+        out[name] = dict(launches=rest["launches"], full=full)
+    return out
+
+
+def elastic_phase(args, fds, full) -> float:
+    """Phase 68: the supervisor relaunches a SIGKILLed CLI child, which
+    resumes from its checkpoint. ``full`` is phase 67's uninterrupted
+    FREEDOM run, whose epoch lines the relaunch must repeat. Returns the
+    phase's seconds."""
+    from chaorec_tpu_torch.data.loading import data_load
+
+    t_start = time.perf_counter()
+    # absolute: the child runs from the checkout's root, the script from anywhere
+    log_dir = os.path.abspath(os.path.join(args.out_dir, "elastic"))
+    os.makedirs(log_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_loader_files(fds, os.path.join(tmp, "data"))
+        back = data_load(fds.name, root, has_v=True, has_t=True)
+        check(all(np.array_equal(getattr(back, k), getattr(fds, k)) for k in (
+            "train_edges", "val_users", "test_users", "v_feat", "t_feat")) and all(
+            np.array_equal(getattr(back, k).values, getattr(fds, k).values)
+            for k in ("history", "val_pos", "test_pos")),
+            "the written set does not load back as the phase's set")
+        del back
+        write_s = time.perf_counter() - t_start
+        ckpt = os.path.join(tmp, "ckpt")
+        cmd = [sys.executable, "-m", "chaorec_tpu_torch.elastic", "--retries", "2", "--",
+               sys.executable, "-m", "chaorec_tpu_torch.cli", "--Model", "FREEDOM",
+               "--data_path", fds.name, "--data_root", root, "--num_epoch", str(RESUME_EPOCHS),
+               "--checkpoint_dir", ckpt, "--checkpoint_every", "1", "--seed", str(args.seed),
+               "--log_dir", log_dir]
+        out_path = os.path.join(log_dir, "supervisor.txt")
+        step1 = os.path.join(ckpt, "combo_0", "step_1")
+        t0 = time.perf_counter()
+        with open(out_path, "w") as out:
+            sup = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                   cwd=os.path.dirname(os.path.abspath(__file__)))
+        killed = None
+        try:
+            while sup.poll() is None and time.perf_counter() - t0 < ELASTIC_TIMEOUT_S:
+                if killed is None and os.path.isdir(step1):
+                    kids = child_pids(sup.pid)
+                    check(len(kids) == 1, f"the supervisor has children {kids}, expected one")
+                    os.kill(kids[0], signal.SIGKILL)
+                    killed = time.perf_counter() - t0
+                time.sleep(0.02)
+        finally:
+            if sup.poll() is None:
+                kill_tree(sup.pid)
+                sup.wait()
+        run_s = time.perf_counter() - t0
+        with open(out_path) as fh:
+            sup_out = fh.read()
+        cursor_path = os.path.join(ckpt, "grid_cursor.json")
+        cursor = {}
+        if os.path.exists(cursor_path):
+            with open(cursor_path) as fh:
+                cursor = json.load(fh)
+    check(killed is not None, "combo_0/step_1 never appeared: no child was killed")
+    check(run_s < ELASTIC_TIMEOUT_S and sup.returncode == 0,
+          f"the supervisor exited {sup.returncode} after {run_s:.1f} s (see {out_path})")
+    check("# elastic: attempt 1 exited rc=-9" in sup_out and "launch attempt 2" in sup_out,
+          "the supervisor did not relaunch the killed child")
+    messages = log_messages(os.path.join(log_dir, f"FREEDOM_{fds.name}.log"))
+    start = next(i for i, m in enumerate(messages) if m.startswith("=========1/1"))
+    first = next(m for m in messages[start:] if m.startswith(("resumed from", "Epoch ")))
+    mt = re.match(r"resumed from checkpoint at epoch (\d+)$", first)
+    check(mt is not None, f"the relaunched run starts with {first!r}, not its resume")
+    n = int(mt.group(1))
+    got, want = epoch_lines(messages), epoch_lines(full["messages"])
+    check(1 <= n < RESUME_EPOCHS and sorted(got) == list(range(n + 1, RESUME_EPOCHS + 1)),
+          f"resumed at {n}, epochs logged {sorted(got)}")
+    check(all(got[e] == want[e] for e in got),
+          "the relaunched run's epoch lines differ from phase 67's uninterrupted run's")
+    check({int(k): v for k, v in cursor.get("0", {}).items()} == full["best"],
+          f"the grid cursor holds {cursor}, not combo 0's best metrics")
+    say("elastic", f"FREEDOM's set written in the loader's format and loaded back equal "
+        f"({write_s:.2f} s); supervisor + CLI child, --num_epoch {RESUME_EPOCHS}, a checkpoint "
+        f"each epoch: child SIGKILLed {killed:.2f} s in (combo_0/step_1 written), relaunched "
+        f"(rc -9 seen, the card probed), resumed at epoch {n}, epochs "
+        f"{n + 1}-{RESUME_EPOCHS} equal to phase 67's lines, cursor records combo 0 with the "
+        f"uninterrupted run's best metrics; supervisor exit 0 after {run_s:.2f} s")
+    return time.perf_counter() - t_start
+
+
+def trace_phase(args, device, fds, full) -> dict:
+    """Phase 69: FREEDOM 2 epochs with ``profile_dir``: the trace of epoch
+    2 holds K1's kernel once a launch of that epoch. ``full`` is phase
+    67's uninterrupted FREEDOM run (its epoch 2 unprofiled). Returns the
+    trace's numbers."""
+    from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.ops.row_adam import fused_row_adam
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    cfg, _ = path_config("FREEDOM", args)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cfg.replace(num_epoch=2, profile_dir=os.path.join(tmp, "prof"),
+                          log_dir=os.path.join(args.out_dir, "trace"))
+        cli.setup_logging(cfg)
+        trainer = Trainer(build_model(cfg, fds, device), fds, cfg)
+        per_epoch = []
+        epoch_fn = trainer.train_epoch
+
+        def train_epoch(params, optimizer):
+            before = fused_row_adam.launches
+            loss = epoch_fn(params, optimizer)
+            per_epoch.append(fused_row_adam.launches - before)
+            return loss
+
+        trainer.train_epoch = train_epoch
+        probe = EpochProbe()
+        logging.getLogger().addFilter(probe)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            trainer.run()
+            torch.cuda.synchronize()
+        finally:
+            logging.getLogger().removeFilter(probe)
+        run_s = time.perf_counter() - t0
+        path = os.path.join(cfg.profile_dir, "epoch_2.trace.json")
+        files = os.listdir(cfg.profile_dir)
+        nbytes = os.path.getsize(path)
+        t1 = time.perf_counter()
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        parse_s = time.perf_counter() - t1
+        del trainer, train_epoch, epoch_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = sum("row_adam_kernel" in e.get("name", "") for e in kernels)
+    n_batches = math.ceil(fds.num_edges / cfg.batch_size)
+    with_s, without_s = probe.epochs[1]["wall_s"], full["epochs"][1]["wall_s"]
+    say("trace", f"FREEDOM 2 epochs with --profile_dir: {files} ({nbytes} bytes, "
+        f"{nbytes / 2 ** 20:.1f} MiB; {len(events)} events, {len(kernels)} device kernels; "
+        f"parsed in {parse_s:.2f} s); row_adam_kernel events {k1}, epoch 2's fused_row_adam "
+        f"launches {per_epoch[1]} (expected {n_batches} x 2 tables); epoch 2 wall "
+        f"{with_s:.3f} s profiled, {without_s:.3f} s unprofiled (phase 67), overhead "
+        f"{100 * (with_s / without_s - 1):.1f}%; run {run_s:.2f} s (trace export included)")
+    check(files == ["epoch_2.trace.json"], f"profile_dir holds {files}")
+    check(per_epoch == [n_batches * 2] * 2 and k1 == per_epoch[1],
+          f"the trace holds {k1} row_adam_kernel events, epoch 2 launched {per_epoch}")
+    return dict(bytes=nbytes, events=len(events), kernels=len(kernels), row_adam=k1,
+                with_s=with_s, without_s=without_s)
+
+
+def resume_phases(args, device, datasets) -> tuple:
+    """Phases 67-69. Returns (their seconds, phase 67's resumed runs'
+    launches by model, phase 69's trace numbers)."""
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    resumed = resume_phase(args, device, datasets)
+    say("resume", f"phase 67: {time.perf_counter() - t0:.1f} s")
+    full = resumed["FREEDOM"]["full"]
+    elastic_s = elastic_phase(args, datasets[FREEDOM_DATASET], full)
+    say("elastic", f"phase 68: {elastic_s:.1f} s")
+    t0 = time.perf_counter()
+    trace = trace_phase(args, device, datasets[FREEDOM_DATASET], full)
+    say("trace", f"phase 69: {time.perf_counter() - t0:.1f} s")
+    return (time.perf_counter() - t_start,
+            {name: r["launches"] for name, r in resumed.items()}, trace)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5512,6 +5964,9 @@ def main(argv=None) -> int:
     say("dfstep", f"phases 62-66's share of the run: {diffusion_s:.1f} s, their "
         f"{len(DIFFUSION_MODELS)} models' determinism runs {diffusion_det_s:.1f} s; "
         f"{diffusion_s + diffusion_det_s:.1f} s in all")
+    resume_s, resume_launches, trace = resume_phases(
+        args, device, {DATASET: ds, FREEDOM_DATASET: fds})
+    say("trace", f"phases 67-69's share of the run: {resume_s:.1f} s")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
@@ -5651,6 +6106,32 @@ def main(argv=None) -> int:
                     "cotangent; the run's total is the sum of the two); ms: 20 calls back to "
                     "back; graph_ms: 20 calls in one CUDA graph; library: torch.cumsum to "
                     "float32, one call"})
+    # the resume path (phase 67): each kernel's launches in the resumed run,
+    # beside the measurement of its shape above
+    resumed_note = ("launches: the {} run resumed from its epoch-{} checkpoint (one epoch); "
+                    "the times are the entry {}'s, the same shape")
+    for name, shape in ROW_ADAM_SHAPES:
+        entries.append({
+            "name": f"fused_row_adam@resume[{name}]", "route": "cuda",
+            "source": "chaorec_tpu_torch/csrc/row_adam.cu",
+            "replaces": "chaorec_tpu/ops/pallas_row_adam.py:44", "shape": list(shape),
+            "dtype": "float32", "launches": resume_launches["FREEDOM"]["fused_row_adam"],
+            **row_adam[name, "float32"],
+            "note": resumed_note.format("FREEDOM", RESUME_SPLIT, f"fused_row_adam@train[{name}]")
+                    + " (both tables' launches)"})
+    by_name = {e["name"]: e for e in entries}
+    entries.append({**by_name["fused_mha@train"], "name": "fused_mha@resume",
+                    "launches": resume_launches["CF_Diff"]["fused_mha"],
+                    "note": resumed_note.format("CF_Diff", RESUME_SPLIT, "fused_mha@train")
+                    + f" (its training and evaluation forwards); {no_library}"})
+    entries.append({**by_name["fused_mha_bwd@train"], "name": "fused_mha_bwd@resume",
+                    "launches": resume_launches["CF_Diff"]["fused_mha_bwd"],
+                    "note": resumed_note.format("CF_Diff", RESUME_SPLIT, "fused_mha_bwd@train")
+                    + f"; {no_library}"})
+    entries.append({**by_name["prefix_scan@dgcf"], "name": "prefix_scan@resume[dgcf]",
+                    "launches": resume_launches["DGCF"]["prefix_cumsum"],
+                    "note": resumed_note.format("DGCF", RESUME_SPLIT, "prefix_scan@dgcf")
+                    + "; library: torch.cumsum, one call"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,8 +199,7 @@ def test_freedom_last_batch_steps_the_jax_table_rows(tiny_dataset):
                                    err_msg=k, **PARAM_TOL)
 
 
-@pytest.mark.parametrize("flag,value", [("checkpoint_dir", "ckpt"), ("checkpoint_every", 2),
-                                        ("mesh_shape", "dp=4"), ("profile_dir", "prof")])
+@pytest.mark.parametrize("flag,value", [("mesh_shape", "dp=4")])
 def test_trainer_refuses_unported_flags(tiny_dataset, flag, value):
     tm = tbuild(TConfig(**DCCF), tiny_dataset, "cpu")
     with pytest.raises(NotImplementedError, match=f"--{flag} .*ROADMAP Queue 1 item"):
