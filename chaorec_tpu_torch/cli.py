@@ -28,7 +28,17 @@ renamed). A rerun skips the recorded combos, counts them in choosing the
 best combo, and resumes the unfinished one from its newest step; a cursor
 written by either package is read by the other. When the best combo came
 from the cursor there are no live weights to export: the JAX CLI's warning
-is logged and the export skipped. The trainer refuses ``--mesh_shape``.
+is logged and the export skipped.
+
+``--mesh_shape dp=..,mp=..`` trains over dp x mp ranks (``parallel/mesh.py``,
+``train/loop.py``). The JAX command runs the mesh in one process; torch
+needs a process a rank, so ``main`` spawns them itself (a ``file://``
+rendezvous in a temporary directory; rank r on ``cuda:(r % cards)``, or
+all on the CPU under ``--device cpu``) and exits nonzero when any rank
+fails. Under torchrun (``WORLD_SIZE`` set) the process joins the world it
+is given, on ``cuda:(LOCAL_RANK % cards)``. Only rank 0 writes the log,
+the grid cursor, checkpoints and the export; at the end it logs each
+rank's peak device memory and kernel launches.
 ``--max_dispatch_batches`` and ``--eval_pipeline`` parse and are ignored:
 they tune the JAX trainer's chunked dispatch and eval pipeline for the
 TPU, which ROADMAP lists under "Do not port".
@@ -40,13 +50,18 @@ import argparse
 import json
 import logging
 import os
+import tempfile
 from typing import Dict, List, Optional
 
 import torch
+import torch.multiprocessing as torch_mp
 
 from chaorec_tpu_torch.config import Config, grid_combinations, load_yaml_config, parse_cli
 from chaorec_tpu_torch.data.loading import RecDataset, data_load
 from chaorec_tpu_torch.models import build_model
+from chaorec_tpu_torch.ops import kernel_wrappers
+from chaorec_tpu_torch.parallel.mesh import (close_mesh, init_mesh, parse_mesh_spec, rank_report,
+                                             world_mesh)
 from chaorec_tpu_torch.params import clone_to
 from chaorec_tpu_torch.train.loop import Trainer, deterministic_mode, log_metrics
 
@@ -65,11 +80,19 @@ def write_cursor(path: str, done: Dict[str, Dict]) -> None:
     os.replace(tmp, path)
 
 
-def setup_logging(cfg: Config) -> None:
+def setup_logging(cfg: Config, lead: bool = True) -> None:
+    """The log file and the console at INFO; a mesh rank other than 0
+    (``lead`` false) writes no file and shows warnings only."""
+    logger = logging.getLogger()
+    if not lead:
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+        logger.setLevel(logging.WARNING)
+        return
     os.makedirs(cfg.log_dir, exist_ok=True)
     log_filename = os.path.join(cfg.log_dir, f"{cfg.Model}_{cfg.data_path}.log")
     formatter = logging.Formatter(LOG_FORMAT, DATE_FORMAT)
-    logger = logging.getLogger()
     logger.setLevel(logging.INFO)
     for h in list(logger.handlers):
         logger.removeHandler(h)
@@ -93,10 +116,14 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
     ``cfg.data_root`` when given; ``yaml_cfg`` instead of the model's YAML."""
     device = torch.device(device)
     torch.empty(0, device=device)  # a missing card raises here, before any work
-    setup_logging(cfg)
+    mesh = world_mesh(cfg.mesh_shape, device) if cfg.mesh_shape else None
+    lead = mesh is None or mesh.rank == 0
+    setup_logging(cfg, lead)
     logging.info("============Arguments==============")
     for arg, value in cfg.as_flat_dict().items():
         logging.info("%s: %s", arg, value)
+    if mesh is not None:
+        logging.info(mesh.describe())
 
     if dataset is None:
         dataset = data_load(cfg.data_path, cfg.data_root, has_v=True, has_t=True)
@@ -135,7 +162,8 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
             current = trainer.run()
             if cursor_path:
                 done[str(idx)] = {str(k): dict(v) for k, v in current.items()}
-                write_cursor(cursor_path, done)
+                if lead:
+                    write_cursor(cursor_path, done)
         current_recall = current[20]["recall"] if 20 in current else (
             current[max(current)]["recall"])
         if best_performance is None or current_recall > best_performance:
@@ -157,7 +185,7 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
                     "best-epoch" if best_host is not None else "final-epoch",
                 )
 
-    if cfg.export_artifact:
+    if cfg.export_artifact and lead:
         if best_export is None:
             logging.warning("export_artifact: best combo resumed from the grid cursor - "
                             "re-run it to export")
@@ -180,14 +208,70 @@ def run(cfg: Config, yaml_cfg: Optional[Dict] = None,
     logging.info("Best performance: {:.5f}".format(best_performance))
     logging.info("Best parameters: {}".format(best_params))
     log_metrics("Best metrics:", best_metrics)
+    if mesh is not None and mesh.backend is not None:
+        log_ranks(mesh)
     return best_metrics
+
+
+def log_ranks(mesh) -> None:
+    """Logs each rank's peak device memory and kernel launches (one
+    all_gather)."""
+    peak = (torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda"
+            else -1)
+    launches = {f.__name__: f.launches for f in kernel_wrappers()}
+    for r, row in enumerate(rank_report(mesh, {"peak": peak, **launches})):
+        peak_r = row.pop("peak")
+        logging.info("mesh %s rank %d (dp %d, mp %d): peak device memory %s; kernel launches %s",
+                     mesh.spec, r, r // mesh.mp, r % mesh.mp,
+                     f"{peak_r / 2 ** 30:.3f} GiB" if peak_r >= 0 else "not measured (cpu)",
+                     ", ".join(f"{k} {int(v)}" for k, v in row.items()))
+
+
+def rank_device(device: str, local_rank: int) -> torch.device:
+    """A mesh rank's device: ``cuda`` becomes ``cuda:(local_rank % cards)``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", local_rank % max(torch.cuda.device_count(), 1))
+    return device
+
+
+def run_in_world(argv: List[str], device: str, local_rank: int,
+                 init_method: str = "env://") -> None:
+    """The command line ``argv`` as one rank of the world it joins at
+    ``init_method``, on ``rank_device(device, local_rank)``."""
+    cfg = parse_cli(argv)
+    dev = rank_device(device, local_rank)
+    init_mesh(cfg.mesh_shape, dev, init_method)
+    try:
+        run(cfg, device=dev)
+    finally:
+        close_mesh()
+
+
+def run_rank(rank: int, world: int, init_method: str, argv: List[str], device: str) -> None:
+    """A rank that ``main`` spawned."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    run_in_world(argv, device, rank, init_method)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--device", default="cuda")
     ns, rest = ap.parse_known_args(argv)
-    run(parse_cli(rest), device=ns.device)
+    cfg = parse_cli(rest)
+    if not cfg.mesh_shape:
+        run(cfg, device=ns.device)
+    elif "WORLD_SIZE" in os.environ:  # torchrun's world
+        run_in_world(rest, ns.device, int(os.environ.get("LOCAL_RANK", 0)))
+    else:
+        dp, mp = parse_mesh_spec(cfg.mesh_shape)
+        with tempfile.TemporaryDirectory() as d:
+            # a rank that raises ends the others and raises here; a rank
+            # is a daemon, ended when this process ends
+            torch_mp.spawn(run_rank, nprocs=dp * mp, join=True, daemon=True,
+                           args=(dp * mp, "file://" + os.path.join(d, "rendezvous"), rest,
+                                 ns.device))
 
 
 if __name__ == "__main__":

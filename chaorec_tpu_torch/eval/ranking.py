@@ -21,6 +21,8 @@ so the port keeps one path.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from chaorec_tpu_torch.ops.mxu import bdot
@@ -55,17 +57,20 @@ def scorer(model, params, state=None):
 
 @torch.no_grad()
 def rank_from_scores(model, params, history: torch.Tensor, topk: int = 50,
-                     user_chunk: int = 4096, state=None) -> torch.Tensor:
+                     user_chunk: int = 4096, state=None,
+                     users: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(num_user, topk) global item ids for every user of a score-mode
     model (with its ``state``, see ``scorer``), ``user_chunk`` users at a
-    time; ``history`` (U, H) is the padded history table on the model's
-    device."""
-    n = history.shape[0]
+    time, or for the ids ``users`` only; ``history`` (U, H) is the padded
+    history table on the model's device."""
+    if users is None:
+        users = torch.arange(history.shape[0], device=history.device)
+    n = users.shape[0]
     topk = min(topk, model.num_item)
     score_fn = scorer(model, params, state)
     outs = []
     for start in range(0, n, user_chunk):
-        ids = torch.arange(start, min(start + user_chunk, n), device=history.device)
+        ids = users[start:start + user_chunk]
         scores = score_fn(ids)
         outs.append(mask_and_topk(scores, history[ids], topk, model.num_user,
                                   float(model.mask_value)))

@@ -344,10 +344,10 @@ def alternating_step(model: AdaGCL, opts: Tuple, params: Params, batch: Batch, d
     ``params`` in place and returns the sum of the three losses (detached);
     ``on_step(label)`` is called after each optimizer step ("main1",
     "main2", "main3", "g1", "g2")."""
-    from chaorec_tpu_torch.train.loop import grads_into
+    from chaorec_tpu_torch.train.loop import grads_into, opt_params
 
     opt, opt_g1, opt_g2 = opts
-    leaves = list(params.values())
+    leaves = opt_params(opt)  # every param (on a mesh, the shards)
 
     def step(optimizer, label):
         optimizer.step()
@@ -406,8 +406,9 @@ class MultiOptimizerTrainer:
 
         with deterministic_mode():
             draws = self.model.draws(self._base.generator, batch)
+            # on a mesh, the view is gathered anew after each optimizer step
             return type(self).step(self.model, (optimizer, *self.gen_opts), params, batch,
-                                   draws)
+                                   draws, on_step=lambda _: self._base.refresh())
 
     def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:
         from chaorec_tpu_torch.data.sampling import make_edge_batches

@@ -33,6 +33,14 @@ steps them with a zero gradient on every other batch.
 ``frozen_state_epoch``: the model builds its state on batch 0 of each epoch
 and reads it detached on the later batches.
 
+``dp_split``: under a mesh with dp > 1, each dp rank steps on its slice of
+a batch's rows, its loss scaled by the slice's share of the batch's weight
+(``parallel/mesh.py``). Declared only where the halves' scaled losses,
+gradients and draws sum to the whole batch's (tests/test_torch_mesh.py):
+a loss of weighted means over rows and of draws not shaped by the batch; a
+summed term divides by ``Batch.share``. Every other model takes the whole
+batch on every dp rank.
+
 ``needs_int_items``: the trainer draws each "bpr" row a second item from
 outside the user's history, ``Batch.int_items`` (MCLN's "interest"
 items), after its negative.
@@ -64,7 +72,8 @@ class Batch:
     positive and negative item (B,), 0-based, and for a model that
     ``needs_int_items`` a second item from outside the user's history.
     ``index`` is the batch's position in its epoch. A "user_rows" batch
-    has no items."""
+    has no items. ``share``: set on a dp rank's slice of a batch, the
+    slice's share of the batch's weight (``parallel/mesh.split_rows``)."""
 
     users: torch.Tensor
     weights: torch.Tensor
@@ -72,6 +81,7 @@ class Batch:
     neg_items: Optional[torch.Tensor] = None
     index: int = 0
     int_items: Optional[torch.Tensor] = None
+    share: Optional[torch.Tensor] = None
 
 
 class RecModel:
@@ -83,6 +93,7 @@ class RecModel:
     needs_int_items: bool = False
     epoch0_params: Tuple[str, ...] = ()
     frozen_state_epoch: bool = False
+    dp_split: bool = False
 
     def __init__(self, num_user: int, num_item: int):
         self.num_user = num_user

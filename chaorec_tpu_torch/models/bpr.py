@@ -23,6 +23,7 @@ from chaorec_tpu_torch.ops.losses import bpr_loss, masked_mean
 
 class BPRMF(RecModel):
     name = "BPR"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
 
     def __init__(self, num_user: int, num_item: int, dim_E: int, reg_weight: float,
                  device: torch.device | str = "cpu"):

@@ -39,6 +39,7 @@ from chaorec_tpu_torch.ops.losses import bpr_loss, emb_l2_reg
 
 class DHCF(RecModel):
     name = "DHCF"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
 
     def __init__(self, num_user: int, num_item: int, dense_h: torch.Tensor, dim_E: int,
                  reg_weight: float, n_layers: int, dropout: float, seed: int):

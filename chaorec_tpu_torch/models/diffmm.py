@@ -419,9 +419,9 @@ class DiffusionFamilyTrainer:
     def denoise_step(opt: torch.optim.Adam, loss: torch.Tensor) -> torch.Tensor:
         """One step of a denoiser Adam on ``loss``: every param of ``opt``
         gets its gradient (zeros where the loss does not reach it)."""
-        from chaorec_tpu_torch.train.loop import grads_into
+        from chaorec_tpu_torch.train.loop import grads_into, opt_params
 
-        grads_into(loss, [p for g in opt.param_groups for p in g["params"]])
+        grads_into(loss, opt_params(opt))
         opt.step()
         return loss.detach()
 
@@ -432,9 +432,12 @@ class DiffusionFamilyTrainer:
         from chaorec_tpu_torch.data.sampling import make_epoch_batches
 
         base = self._base
-        opt = self.denoiser_adam(params, prefixes)
-        return torch.stack([self.denoise_step(opt, loss_fn(batch)) for batch in
-                            make_epoch_batches(base.generator, n_rows, int(self.cfg.batch_size))])
+        opt = self.denoiser_adam(base.trainable(params), prefixes)
+        losses = []
+        for batch in make_epoch_batches(base.generator, n_rows, int(self.cfg.batch_size)):
+            losses.append(self.denoise_step(opt, loss_fn(batch)))
+            base.refresh()  # on a mesh, the view gathered anew
+        return torch.stack(losses)
 
     @staticmethod
     def log_denoise_losses(losses: torch.Tensor, total: int) -> None:

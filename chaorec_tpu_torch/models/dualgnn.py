@@ -45,6 +45,7 @@ EPOCH_SEED = (104729, 7)  # the epoch's neighbour draw: default_rng(epoch * a + 
 
 class DualGNN(RecModel):
     name = "DualGNN"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
 
     def __init__(self, num_user: int, num_item: int, graph: BipartiteGraph, edges: np.ndarray,
                  v_feat: torch.Tensor, t_feat: torch.Tensor, dim_E: int,

@@ -44,6 +44,7 @@ Draws = List[Dict[str, torch.Tensor]]
 
 class FKAN_GCF(RecModel):
     name = "FKAN_GCF"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
 
     def __init__(self, num_user: int, num_item: int, graph: BipartiteGraph, dim_E: int,
                  reg_weight: float, n_layers: int, node_dropout: float,

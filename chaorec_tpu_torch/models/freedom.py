@@ -50,6 +50,7 @@ PRUNE_SEED = 6151  # the JAX package's pruning key, PRNGKey(6151) folded with th
 
 class FREEDOM(RecModel):
     name = "FREEDOM"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
     table_params = ("v_feat", "t_feat")
 
     def __init__(self, num_user: int, num_item: int, graph: BipartiteGraph,

@@ -394,12 +394,15 @@ class GFormer(RecModel):
         return bpr + reg + contrast + self.ctra * nce + self.b2 * bpr2
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         whole: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` on ``grads``, in place: when their
     global L2 norm is at least ``max_norm``, each becomes ``g / norm *
     max_norm`` (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``).
-    Returns the norm (a 0-dim tensor; no host sync)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    ``whole``: the gradients the norm is taken over, where ``grads`` are a
+    mesh rank's rows of them (default ``grads``). Returns the norm (a
+    0-dim tensor; no host sync)."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in (grads if whole is None else whole)))
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
     return norm
@@ -444,12 +447,15 @@ class GFormerTrainer:
     def train_step(self, params: Params, optimizer: torch.optim.Optimizer, batch: Batch,
                    graphs: GFGraphs) -> torch.Tensor:
         """One clipped Adam step on a batch with its negatives; returns the loss."""
+        store = self._base.store_for(params)
         optimizer.zero_grad(set_to_none=True)
         loss = self.model.loss_graphs(params, batch, graphs)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in params.values() if p.grad is not None],
-                             self.max_grad_norm)
+        grads = {k: p.grad for k, p in store.shards.items() if p.grad is not None}
+        clip_by_global_norm_(list(grads.values()), self.max_grad_norm,
+                             [store.gather(k, g) for k, g in grads.items()])
         optimizer.step()
+        store.full()
         return loss
 
     def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:

@@ -228,10 +228,10 @@ def grade_step(model: Grade, opts: Tuple, params: Params, batch: Batch, draws: D
     ``g{i}_*`` params). Updates ``params`` in place and returns the sum of
     the three losses (detached); ``on_step(label)`` is called after each
     optimizer step ("main1", "main2", "g1", "g2", "g3")."""
-    from chaorec_tpu_torch.train.loop import grads_into
+    from chaorec_tpu_torch.train.loop import grads_into, opt_params
 
     opt, *gen_opts = opts
-    leaves = list(params.values())
+    leaves = opt_params(opt)  # every param (on a mesh, the shards)
 
     def step(optimizer, label):
         optimizer.step()
@@ -247,7 +247,7 @@ def grade_step(model: Grade, opts: Tuple, params: Params, batch: Batch, draws: D
     # only the generators' Adams take this gradient: the other params' is
     # never read, so it is not computed
     l3 = model.gen_loss(params, batch, draws)
-    grads_into(l3, [p for gi, _ in TOWERS for p in prefixed(params, f"g{gi}_")])
+    grads_into(l3, opt_params(*gen_opts))
     for (gi, _), g_opt in zip(TOWERS, gen_opts):
         step(g_opt, f"g{gi}")
     return (l1 + l2 + l3).detach()

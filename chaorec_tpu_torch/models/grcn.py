@@ -58,6 +58,7 @@ def modal_max(x: torch.Tensor) -> torch.Tensor:
 
 class GRCN(RecModel):
     name = "GRCN"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
 
     def __init__(self, num_user: int, num_item: int, graph: BipartiteGraph,
                  v_feat: torch.Tensor, t_feat: torch.Tensor, dim_E: int, dim_C: int,

@@ -35,6 +35,7 @@ from chaorec_tpu_torch.ops.losses import bpr_loss, cosine_rows, emb_l2_reg
 
 class LayerGCN(RecModel):
     name = "LayerGCN"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
 
     def __init__(self, num_user: int, num_item: int, graph: BipartiteGraph, dim_E: int,
                  reg_weight: float, n_layers: int, dropout: float):

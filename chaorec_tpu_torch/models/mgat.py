@@ -37,6 +37,7 @@ from chaorec_tpu_torch.ops.losses import bpr_loss, emb_l2_reg, l2norm
 
 class MGAT(RecModel):
     name = "MGAT"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
     dim_latent_v = 256
     dim_latent_t = 100
 

@@ -41,6 +41,7 @@ from chaorec_tpu_torch.ops.losses import l2norm, masked_mean
 
 class MMGCN(RecModel):
     name = "MMGCN"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
     dim_latent_v = 256
     n_rounds = 4
     frozen = ("id_embedding", "v_preference", "t_preference")

@@ -354,16 +354,16 @@ def mmssl_step(model: MMSSL, opts: Tuple, params: Params, state: State, batch: B
     discriminator's Adam). Updates ``params`` in place; returns (loss_d +
     the generator loss, detached; the next state). ``on_step(label)`` is
     called after each optimizer step ("d", "main")."""
-    from chaorec_tpu_torch.train.loop import grads_into
+    from chaorec_tpu_torch.train.loop import grads_into, opt_params
 
     opt_main, opt_d = opts
     loss_d = model.loss_d_with_draws(params, state, batch, draws)
-    grads_into(loss_d, prefixed(params, "D_"))
+    grads_into(loss_d, opt_params(opt_d))
     opt_d.step()
     if on_step is not None:
         on_step("d")
     loss, new_state = model.loss_stateful_with_draws(params, state, batch, draws)
-    grads_into(loss, params.values())
+    grads_into(loss, opt_params(opt_main))
     opt_main.step()
     if on_step is not None:
         on_step("main")
@@ -402,13 +402,14 @@ class MMSSLTrainer(MultiOptimizerTrainer):
         with deterministic_mode():
             draws = self.model.draws(base.generator, batch)
             loss, base.model_state = mmssl_step(self.model, (optimizer, *self.gen_opts), params,
-                                                base.model_state, batch, draws)
+                                                base.model_state, batch, draws,
+                                                on_step=lambda _: base.refresh())
             return loss
 
     def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:
         """An epoch with optimizers made anew at its start (the one passed
         in is the run's, made before the first epoch)."""
-        return super().train_epoch(params, self.make_optimizer(params))
+        return super().train_epoch(params, self.make_optimizer(self._base.trainable(params)))
 
 
 MMSSL.trainer_cls = MMSSLTrainer

@@ -34,7 +34,8 @@ from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
 from chaorec_tpu_torch.ops.init import xavier_uniform
 from chaorec_tpu_torch.ops.kmeans import kmeans
-from chaorec_tpu_torch.ops.losses import bpr_loss, catalog_logsumexp, emb_l2_reg, l2norm
+from chaorec_tpu_torch.ops.losses import (bpr_loss, catalog_logsumexp, emb_l2_reg, l2norm,
+                                          unshare)
 
 Prototypes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -50,6 +51,7 @@ def _full_catalog_nce_sum(cur_batch, prev_batch, prev_all, temp, weights) -> tor
 
 class NCL(RecModel):
     name = "NCL"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
     hyper_layers = 1
     alpha = 1.0
     proto_reg = 1e-7
@@ -131,7 +133,7 @@ class NCL(RecModel):
              params["item_embedding"][batch.neg_items]),
             w,
         )
-        return bpr + reg + ssl + proto
+        return bpr + reg + unshare(ssl, batch.share) + unshare(proto, batch.share)
 
     def loss(self, params: Params, batch: Batch, generator: torch.Generator) -> torch.Tensor:
         return self.loss_with_prototypes(params, batch, self.prototypes(params, generator))

@@ -33,11 +33,13 @@ from chaorec_tpu_torch.graphs.dropout import (EdgeBags, bernoulli_keep, edge_pro
 from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
 from chaorec_tpu_torch.ops.init import xavier_uniform
-from chaorec_tpu_torch.ops.losses import bpr_loss, catalog_logsumexp, emb_l2_reg, l2norm
+from chaorec_tpu_torch.ops.losses import (bpr_loss, catalog_logsumexp, emb_l2_reg, l2norm,
+                                          unshare)
 
 
 class SGL(RecModel):
     name = "SGL"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
     ssl_ratio = 0.1  # Model/SGL.py:51
 
     def __init__(self, num_user: int, num_item: int, graph: BipartiteGraph, dim_E: int,
@@ -111,8 +113,9 @@ class SGL(RecModel):
              params["item_embedding"][batch.neg_items]),
             w,
         )
-        ssl = self._ssl_loss(batch.users, batch.pos_items, w,
-                             self._view(params, keeps[0]), self._view(params, keeps[1]))
+        ssl = unshare(self._ssl_loss(batch.users, batch.pos_items, w,
+                                     self._view(params, keeps[0]), self._view(params, keeps[1])),
+                      batch.share)
         return bpr + reg + self.ssl_reg * ssl
 
     def loss(self, params: Params, batch: Batch, generator: torch.Generator) -> torch.Tensor:

@@ -23,6 +23,7 @@ from chaorec_tpu_torch.ops.losses import bpr_loss, emb_l2_reg
 
 class VBPR(RecModel):
     name = "VBPR"
+    dp_split = True  # weighted means over rows (tests/test_torch_mesh.py)
     visual_embedding = 64  # Model/VBPR.py:25
 
     def __init__(self, num_user: int, num_item: int, v_feat: torch.Tensor, dim_E: int,

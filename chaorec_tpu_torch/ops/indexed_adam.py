@@ -47,10 +47,12 @@ def table_adam_update(table: torch.Tensor, state: TableOptState, rows: torch.Ten
                       ) -> Tuple[torch.Tensor, TableOptState]:
     """One Adam step of ``table`` for the gradient ``g_rows`` (B, D) of
     ``table[rows]`` (duplicates allowed); ``count`` is the step count after
-    this update. Returns the new (table, state): on the card the same
-    tensors, updated in place by the kernel."""
+    this update. Rows >= N are padding, skipped (the kernel's sentinel:
+    a mesh rank's ids of rows another rank owns). Returns the new (table,
+    state): on the card the same tensors, updated in place by the kernel."""
     if table.device.type == "cpu":
-        return row_adam_update(table, state, rows, g_rows, count, lr, b1, b2, eps)
+        keep = rows < table.shape[0]
+        return row_adam_update(table, state, rows[keep], g_rows[keep], count, lr, b1, b2, eps)
     if table.device.type != "cuda":
         raise ValueError(f"table_adam_update runs on cpu or cuda, got {table.device}")
     r_s, g_s = prepare_sorted_rows(rows, g_rows, table.shape[0])

@@ -47,6 +47,17 @@ def masked_mean(x: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tenso
     return torch.sum(x * weights) / torch.clamp(torch.sum(weights), min=1.0)
 
 
+def unshare(term: torch.Tensor, share: Optional[torch.Tensor]) -> torch.Tensor:
+    """A loss term summed (not averaged) over a batch's rows, on a dp
+    rank's slice of the batch (``share`` set, ``Batch.share``) divided by
+    the slice's share of the batch's weight: the trainer scales the
+    slice's loss by that share (``parallel/mesh.py``), which gives the
+    summed term back whole. A slice of weight 0 sums to 0 and stays 0."""
+    if share is None:
+        return term
+    return term / torch.where(share > 0, share, torch.ones_like(share))
+
+
 def bpr_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor,
              weights: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
     """-mean(log(sigmoid(pos - neg) + eps)) (Model/LightGCN.py:97-110)."""

@@ -79,16 +79,35 @@ the card's generator states differ in shape). ``--profile_dir``: a
 training and evaluation, the JAX trainer's window), written as Chrome-trace
 JSON; on the card it must hold device kernels.
 
+Under ``--mesh_shape dp=..,mp=..`` (``parallel/mesh.py``, in a world the
+CLI spawns or torchrun starts) ``run`` keeps the params in a
+``ShardedParams`` store: the optimizers step ``store.shards`` (each rank's
+rows of a param the JAX rule shards over mp), the model reads
+``store.view`` (those rows gathered, refreshed after every optimizer
+step), and a table's rows are gathered by one all_reduce and stepped by K1
+on the rows the rank owns. Every rank draws whole batches from the same
+seed; a ``dp_split`` model steps on its dp slice, its loss scaled by the
+slice's share, its gradients summed over dp before the step. Evaluation
+ranks the users split over the world (``sharded_rank``,
+``sharded_rank_scores``) and gives every rank all the lists; each epoch
+logs its loss's bits and sha256 digests of the rank lists and of the
+replicated params, which must agree on every rank. Checkpoints keep the
+single-device schema (the gathered params, moments and tables, written by
+rank 0; a restore keeps each rank's rows), so a mesh run resumes a
+single-device checkpoint and the reverse. Only rank 0 logs, profiles and
+saves. On one device the store is the params dict itself: the same ops,
+the same bits.
+
 Not ported: the JAX trainer's chunked epoch dispatch, its serialize guard,
 its compile sharing through injected hyperparameters and its one-epoch-deep
-eval pipeline exist for the TPU and its remote link. Mesh training comes
-with its slice: the trainer refuses ``--mesh_shape`` (``UNPORTED_FLAGS``).
+eval pipeline exist for the TPU and its remote link.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import logging
 import os
 import time
@@ -101,19 +120,16 @@ from chaorec_tpu_torch.data.loading import RecDataset
 from chaorec_tpu_torch.data.sampling import (make_edge_batches, make_epoch_batches,
                                              sample_negatives)
 from chaorec_tpu_torch.eval.metrics import gene_metrics_pair, split_tensors
-from chaorec_tpu_torch.eval.ranking import gene_ranklist, rank_from_scores
 from chaorec_tpu_torch.models.base import Batch, Params, RecModel
-from chaorec_tpu_torch.ops.indexed_adam import init_table_state, table_adam_update
+from chaorec_tpu_torch.ops.indexed_adam import (TableOptState, init_table_state,
+                                                table_adam_update)
+from chaorec_tpu_torch.parallel.mesh import (Mesh, ShardedParams, shard_batch, shard_params,
+                                             sharded_rank, sharded_rank_scores, world_mesh)
 from chaorec_tpu_torch.params import clone_to
 from chaorec_tpu_torch.train.checkpoint import CheckpointManager
 
 ADAM_BETAS = (0.9, 0.999)  # torch.optim.Adam defaults, as the reference uses
 ADAM_EPS = 1e-8
-# Flags the JAX trainer reads and this one does not yet: the trainer refuses
-# them rather than run without them. Each names the ROADMAP item that ports it.
-UNPORTED_FLAGS = {
-    "mesh_shape": "Queue 1 item 9 (multi-device)",
-}
 ADAM_MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
@@ -153,13 +169,18 @@ def grads_into(loss: torch.Tensor, params) -> None:
         p.grad = torch.zeros_like(p) if g is None else g
 
 
+def opt_params(*optimizers: torch.optim.Optimizer) -> list:
+    """The params ``optimizers`` step, in their param groups' order."""
+    return [p for o in optimizers for g in o.param_groups for p in g["params"]]
+
+
 def optimizer_tree(optimizer: torch.optim.Optimizer, like: bool = False) -> Dict:
     """An Adam's (or AdamW's) state as a checkpoint tree, one entry a param
     in the param groups' order: whether it has state yet (torch's Adam makes
     a param's state at its first step), its step count and its moments,
     zeros where it has none. With ``like``, the stand-ins ``restore`` reads
     shapes, dtypes and devices from: the params themselves, no copy."""
-    params = [p for g in optimizer.param_groups for p in g["params"]]
+    params = opt_params(optimizer)
     tree = {"has": torch.tensor([bool(optimizer.state.get(p)) for p in params], dtype=torch.bool),
             "step": [], **{k: [] for k in ADAM_MOMENTS}}
     for p in params:
@@ -246,13 +267,14 @@ class Trainer:
         if model.stateful and model.table_params:
             raise NotImplementedError(f"{model.name}: a stateful model with row-sparse "
                                       "tables is not ported")
-        for flag, item in UNPORTED_FLAGS.items():
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"--{flag} is not ported; ROADMAP {item} ports it")
         self.model = model
         self.dataset = dataset
         self.cfg = cfg
         self.device = model.device
+        self.mesh = (world_mesh(cfg.mesh_shape, self.device) if cfg.mesh_shape
+                     else Mesh(device=self.device))
+        # set by ``run``: the params on the mesh (on one device, the dict itself)
+        self.store: Optional[ShardedParams] = None
         # One generator drives everything random in training: shuffles,
         # negatives, timesteps, noise and dropout.
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
@@ -288,12 +310,38 @@ class Trainer:
                                 lr=float(self.cfg.learning_rate), betas=ADAM_BETAS,
                                 eps=ADAM_EPS)
 
+    def store_for(self, params: Params) -> ShardedParams:
+        """The store whose ``view`` is ``params``: ``run``'s, or for params
+        given from outside (one device) a store that is the dict itself."""
+        if self.store is not None and params is self.store.view:
+            return self.store
+        return ShardedParams(params, Mesh(device=self.device), self.model.table_params)
+
+    def trainable(self, params: Params) -> Params:
+        """What an optimizer over ``params`` steps: the store's shards."""
+        return self.store_for(params).shards
+
+    def refresh(self) -> None:
+        """The store's view gathered anew after an optimizer step."""
+        if self.store is not None:
+            self.store.full()
+
+    @property
+    def dp_split(self) -> bool:
+        """Whether each dp rank steps on its slice of a batch."""
+        return self.mesh.dp > 1 and self.model.dp_split
+
     @deterministic_mode()
     def train_step(self, params: Params, optimizer: torch.optim.Optimizer,
                    batch: Batch) -> torch.Tensor:
         """One Adam step on a batch (a "bpr" batch with its negatives);
-        returns the loss. Updates ``params`` (the tables by replacement on
-        the CPU, in place on the card) and a stateful model's state."""
+        returns the loss (under a dp split, this rank's slice's scaled
+        part). Updates ``params`` (the tables by replacement on the CPU, in
+        place on the card) and a stateful model's state."""
+        store = self.store_for(params)
+        share = None
+        if self.dp_split:
+            batch, share = shard_batch(batch, self.mesh)
         optimizer.zero_grad(set_to_none=True)
         names = self.model.table_params
         if not names:
@@ -302,26 +350,53 @@ class Trainer:
                     params, self.model_state, batch, self.generator)
             else:
                 loss = self.model.loss(params, batch, self.generator)
+            if share is not None:
+                loss = loss * share
             if self.model.epoch0_params:
                 # off batch 0 the gated params get a zero gradient, not none
-                grads_into(loss, params.values())
+                grads_into(loss, store.shards.values())
             else:
                 loss.backward()
+            if share is not None:
+                store.reduce_grads()
             optimizer.step()
+            store.full()
             return loss
         dense = {k: v for k, v in params.items() if k not in names}
         rows = self.model.table_rows(batch)
-        gathered = {n: params[n][rows[n]].requires_grad_() for n in names}
+        gathered = {n: store.table_rows(n, rows[n]).requires_grad_() for n in names}
         loss = self.model.loss_tables(dense, gathered, batch, self.generator)
+        if share is not None:
+            loss = loss * share
         loss.backward()
+        if share is not None:
+            store.reduce_grads()
         optimizer.step()
+        store.full()
         self.table_count += 1
         lr = float(self.cfg.learning_rate)
         for n in names:
-            params[n], self.table_state[n] = table_adam_update(
-                params[n], self.table_state[n], rows[n], gathered[n].grad,
+            r, g = rows[n], gathered[n].grad
+            if share is not None:
+                r, g = self.dp_table_rows(store, n, r, g)
+            t, self.table_state[n] = table_adam_update(
+                store.shards[n], self.table_state[n], store.owned_rows(n, r), g,
                 self.table_count, lr, ADAM_BETAS[0], ADAM_BETAS[1], ADAM_EPS)
+            store.set(n, t)
         return loss
+
+    def dp_table_rows(self, store: ShardedParams, name: str, rows: torch.Tensor,
+                      g: torch.Tensor):
+        """(rows, gradients) of table ``name`` over the whole batch: each dp
+        rank's, laid end to end (padded to one length with the table's row
+        count, which the row-sparse Adam skips, and zero gradients)."""
+        mesh = self.mesh
+        n = int(mesh.all_gather(torch.tensor(rows.shape[0], device=rows.device), "dp").max())
+        pad = n - rows.shape[0]
+        if pad:
+            rows = torch.cat([rows, rows.new_full((pad,), store.full_shape(name)[0])])
+            g = torch.cat([g, g.new_zeros((pad,) + tuple(g.shape[1:]))])
+        return mesh.all_gather(rows, "dp"), mesh.all_gather(g, "dp")
 
     def bpr_batch(self, batch: Batch) -> Batch:
         """A "bpr" batch of (user, positive) rows completed for a step: one
@@ -349,28 +424,32 @@ class Trainer:
             for batch in make_edge_batches(self.generator, self.edges, bs):
                 loss = self.train_step(params, optimizer, self.bpr_batch(batch))
                 losses.append(loss.detach())
-        return float(torch.stack(losses).sum())  # the epoch's one host sync
+        losses = torch.stack(losses)
+        if self.dp_split:  # each batch's loss: the sum of its slices' parts
+            losses = self.mesh.all_reduce(losses, "dp")
+        return float(losses.sum())  # the epoch's one host sync
 
     @torch.no_grad()
     @deterministic_mode()
     def evaluate(self, params: Params):
         """(val, test, rank_list): full-catalog top-``rank_topk`` ranking with
-        seen items masked, then the metrics of both splits."""
+        seen items masked, the users split over the mesh's ranks (on one
+        device, all of them), then the metrics of both splits."""
         if self.model.rank_mode == "embeddings":
             if self.model.stateful:
                 user_emb, item_emb = self.model.embeddings_stateful(params, self.model_state)
             else:
                 user_emb, item_emb = self.model.embeddings(params)
-            rank_list = gene_ranklist(user_emb, item_emb, self.history, self.model.num_user,
-                                      self.cfg.rank_topk, self.cfg.eval_user_chunk)
+            rank_list = sharded_rank(user_emb, item_emb, self.history, self.model.num_user,
+                                     self.cfg.rank_topk, self.mesh, self.cfg.eval_user_chunk)
         else:
             # a fresh draw a ranking pass (LightGT's evaluation subsets, as the
             # reference's EvalDataset reshuffles, dataload.py:124-145)
             if hasattr(self.model, "resample_eval"):
                 self.model.resample_eval()
-            rank_list = rank_from_scores(self.model, params, self.history,
-                                         self.cfg.rank_topk, self.cfg.eval_user_chunk,
-                                         self.model_state)
+            rank_list = sharded_rank_scores(self.model, params, self.history,
+                                            self.model.num_user, self.cfg.rank_topk, self.mesh,
+                                            self.model_state, self.cfg.eval_user_chunk)
         val, test = gene_metrics_pair(rank_list, list(self.cfg.topk),
                                       self.val_split, self.test_split)
         return val, test, rank_list
@@ -380,11 +459,30 @@ class Trainer:
         """What a checkpoint holds (with ``like``, the live structure a
         restore fills): the params, the Adam's state, the tables' moments
         and shared step count, the model state, the generator's state and
-        the early-stopping cursor (its metrics go in the JSON sidecar)."""
+        the early-stopping cursor (its metrics go in the JSON sidecar).
+        On a mesh, the single-device schema: each sharded param, its
+        moments and its table moments gathered whole (with ``like``,
+        stand-ins of the whole shape that hold no memory)."""
+        store = self.store_for(params)
+
+        def whole(name, t):
+            if name not in store.rows:
+                return t
+            if like:
+                return t.new_empty(()).expand(store.full_shape(name))
+            return store.gather(name, t.detach())
+
+        opt = optimizer_tree(optimizer, like)
+        if store.rows:
+            for i, p in enumerate(opt_params(optimizer)):
+                name = store.name_of(p)
+                for k in ADAM_MOMENTS:
+                    opt[k][i] = whole(name, opt[k][i])
         return {
-            "params": params,
-            "optimizer": optimizer_tree(optimizer, like),
-            "tables": self.table_state,
+            "params": {k: whole(k, v) for k, v in store.shards.items()},
+            "optimizer": opt,
+            "tables": {n: TableOptState(whole(n, s.m), whole(n, s.v))
+                       for n, s in self.table_state.items()},
             "table_count": self.table_count,
             "mstate": self.model_state,
             "rng": self.generator.get_state(),
@@ -397,18 +495,26 @@ class Trainer:
                 optimizer: torch.optim.Optimizer, early_stopping: EarlyStopping) -> None:
         """Step ``step`` of ``ckpt`` into the live params (in place: the
         optimizer holds them), the optimizer, the trainer's state and
-        ``early_stopping``."""
+        ``early_stopping``. On a mesh each rank keeps its rows."""
+        store = self.store_for(params)
         tree, metrics = ckpt.restore(
             step, self.checkpoint_tree(params, optimizer, early_stopping, like=True),
             self.device)
         with torch.no_grad():
             for k, v in tree["params"].items():
-                params[k].copy_(v)
-        load_optimizer_tree(optimizer, tree["optimizer"])
-        self.table_state = tree["tables"]
+                store.shards[k].copy_(store.local(k, v))
+        opt = tree["optimizer"]
+        for i, p in enumerate(opt_params(optimizer) if store.rows else ()):
+            name = store.name_of(p)
+            for k in ADAM_MOMENTS:
+                opt[k][i] = store.local(name, opt[k][i])
+        load_optimizer_tree(optimizer, opt)
+        self.table_state = {n: TableOptState(store.local(n, s.m), store.local(n, s.v))
+                            for n, s in tree["tables"].items()}
         self.table_count.copy_(tree["table_count"])
         self.model_state = tree["mstate"]
         self.generator.set_state(tree["rng"])
+        store.full()
         if metrics is not None:
             early_stopping.best_metrics = {int(k): v for k, v in metrics.items()}
             early_stopping.best_score = float(tree["es"]["best_score"])
@@ -447,9 +553,12 @@ class Trainer:
     @deterministic_mode()
     def run(self) -> Dict:
         cfg = self.cfg
-        params = self.init_params()
-        optimizer = self.make_optimizer(params)
-        early_stopping = EarlyStopping(patience=cfg.patience, verbose=True)
+        lead = self.mesh.rank == 0  # the rank that logs, profiles and saves
+        store = self.store = shard_params(self.init_params(), self.mesh,
+                                          self.model.table_params)
+        params = store.view
+        optimizer = self.make_optimizer(store.shards)
+        early_stopping = EarlyStopping(patience=cfg.patience, verbose=lead)
         ckpt = None
         start_epoch = 0
         if cfg.checkpoint_dir and cfg.checkpoint_every > 0:
@@ -461,13 +570,13 @@ class Trainer:
                 logging.info("resumed from checkpoint at epoch %d", latest)
         for epoch in range(start_epoch, cfg.num_epoch):
             # the second epoch of this process: steady state, no build noise
-            prof = (self.start_profile() if cfg.profile_dir and epoch == start_epoch + 1
-                    else None)
+            prof = (self.start_profile()
+                    if cfg.profile_dir and epoch == start_epoch + 1 and lead else None)
             t0 = time.perf_counter()
             self.model.pre_epoch(params, epoch)
             loss = self.train_epoch(params, optimizer)
             t1 = time.perf_counter()
-            val_metrics, test_metrics, _ = self.evaluate(params)
+            val_metrics, test_metrics, rank_list = self.evaluate(params)
             t2 = time.perf_counter()
             logging.info("Epoch {}, Loss: {:.5f}".format(epoch + 1, loss))
             _log_metric_tables(val_metrics, test_metrics)
@@ -475,26 +584,49 @@ class Trainer:
                 "epoch_time_s: total %.3f (train-dispatch %.3f | eval+sync %.3f)",
                 t2 - t0, t1 - t0, t2 - t1,
             )
+            if self.mesh.backend is not None:
+                self.log_mesh_epoch(epoch, loss, rank_list)
             early_stopping(test_metrics[max(cfg.topk)]["recall"], test_metrics)
             if cfg.export_artifact and early_stopping.counter == 0:
                 # host copies: the optimizer updates params in place
-                self.best_params_host = clone_to(params, "cpu")
+                self.best_params_host = store.gather_host()
                 self.best_mstate_host = clone_to(self.model_state, "cpu")
             if prof is not None:
                 self.stop_profile(prof, epoch)
                 logging.info("profiler trace written to %s", cfg.profile_dir)
             if ckpt is not None and (epoch + 1) % cfg.checkpoint_every == 0:
-                ckpt.save(epoch + 1, self.checkpoint_tree(params, optimizer, early_stopping),
-                          metrics={str(k): dict(v) for k, v in
-                                   (early_stopping.best_metrics or {}).items()})
+                tree = self.checkpoint_tree(params, optimizer, early_stopping)
+                if lead:
+                    ckpt.save(epoch + 1, tree, metrics={
+                        str(k): dict(v) for k, v in (early_stopping.best_metrics or {}).items()})
+                del tree
             if early_stopping.early_stop:
-                print("Early stopping")
+                if lead:
+                    print("Early stopping")
                 break
         log_metrics("Best Test Metrics:", early_stopping.best_metrics)
         # the CLI's export falls back to these when no epoch of this
         # process was the best (a resume past the best epoch)
-        self.final_params = params
+        self.final_params = store.gather_host() if store.rows else params
         return early_stopping.best_metrics
+
+    def log_mesh_epoch(self, epoch: int, loss: float, rank_list: torch.Tensor) -> None:
+        """Logs the epoch's loss bits and sha256 digests of the rank lists
+        and of the replicated params, after checking that every rank holds
+        the same: a rank that went its own way would stop early alone and
+        hang the others in their next collective."""
+        digests = [float(loss).hex(),
+                   hashlib.sha256(rank_list.cpu().numpy().tobytes()).hexdigest(),
+                   self.store.digest()]
+        mine = torch.frombuffer(bytearray("|".join(digests).encode()), dtype=torch.uint8)
+        mine = torch.cat([mine, torch.zeros(256 - mine.numel(), dtype=torch.uint8)])
+        every = self.mesh.all_gather(mine.to(self.device)[None], "world").cpu()
+        if not bool((every == every[0]).all()):
+            raise RuntimeError(f"mesh {self.mesh.spec}, epoch {epoch + 1}: the ranks disagree "
+                               "on the loss, the rank lists or the replicated params")
+        logging.info("mesh %s epoch %d: loss %s, rank lists sha256 %s, replicated params "
+                     "sha256 %s, the same on all %d ranks", self.mesh.spec, epoch + 1,
+                     *digests, self.mesh.world)
 
 
 def train_and_evaluate(model: RecModel, dataset: RecDataset, cfg: Config) -> Dict:

@@ -128,7 +128,12 @@ published width with random weights from ``--seed``:
 - checkpoint/resume through K1, K3 and K4 (FREEDOM and DGCF on the
   sports-sized set, CF_Diff on the baby-sized one: a resumed run gives the
   bits of an uninterrupted one), the supervisor relaunching a killed CLI
-  child into its checkpoint, and the ``--profile_dir`` trace.
+  child into its checkpoint, and the ``--profile_dir`` trace;
+- the mesh (``--mesh_shape``), its ranks spawned by the CLI on this one
+  card: FREEDOM as a world of one over NCCL and row-sharded over mp=3
+  (three gloo ranks, K1 stepping each rank's (5069, .) shard of its
+  tables), both bit-equal to one device; SGL split over dp=2 (two gloo
+  ranks, K2 on each rank's half of a batch).
 
 Phases, each printing its own lines:
 
@@ -447,7 +452,9 @@ Phases, each printing its own lines:
             launches exactly one epoch's (counts reset just before, read
             just after); save and restore seconds, checkpoint bytes, peak
             memory
-68. elastic the sports-sized set written in the loader's format; python -m
+68. elastic (started before phase 48 and run beside phases 48-67, its
+            wall under that load; collected here) the sports-sized set
+            written in the loader's format; python -m
             chaorec_tpu_torch.elastic --retries 2 -- python -m
             chaorec_tpu_torch.cli --Model FREEDOM ... --num_epoch 3
             --checkpoint_every 1; the CLI child SIGKILLed as soon as
@@ -458,6 +465,32 @@ Phases, each printing its own lines:
 69. trace  FREEDOM 2 epochs with --profile_dir: epoch 2's Chrome trace holds
             one row_adam_kernel event a launch of that epoch; its bytes,
             and epoch 2's wall with and without the profiler
+70. mesh   (the three CLI children of 70-72 start together before phase 34,
+            with the sports-sized set written in the loader's format, and
+            run beside phases 34-69; their walls are under that load)
+            K1 at rank 0's mp=3 shards (5069, 4096) and (5069, 384), the
+            batch's rows it does not own mapped to the padding id, held to
+            row_adam_update and timed; K2 at SGL's dp=2 half batch (512
+            rows against the (28940, 64) and (15207, 64) tables) held and
+            timed; FREEDOM and SGL 1 epoch on one device (the references);
+            then python -m chaorec_tpu_torch.cli --Model FREEDOM ...
+            --mesh_shape dp=1,mp=1 (the CLI spawns a world of one over
+            NCCL): loss bits, rank lists and checkpoint (params, Adam,
+            tables' moments and count, generator) equal to one device's
+71. mesh   the same with --mesh_shape dp=1,mp=3: three gloo ranks on the
+            card, each holding (5069, .) shards of v_feat, t_feat, their
+            moments and the item table; bit-equal to one device; each
+            rank's launches one device's (K1 on every rank); each rank's
+            peak memory beside one device's
+72. mesh   python -m chaorec_tpu_torch.cli --Model SGL ... --mesh_shape
+            dp=2: two gloo ranks, each stepping its half of every batch
+            (K2 at q = 512 rows), gradients summed over dp; the loss within
+            1e-4 of one device's, the rank lists' mean top-50 overlap with
+            one device's >= 0.98, each param within 4x the drift that
+            permuting each batch's rows gives one device (an epoch run here
+            with the rows permuted: the same sums in another order), the
+            replicated params bit-equal on both ranks, each rank's launches
+            one device's
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -477,18 +510,22 @@ full fp32, as the kernels do.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import logging
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -908,14 +945,9 @@ def lse_counts():
 
 def kernel_wrappers():
     """Every kernel wrapper, in the order of KERNELS' sources."""
-    from chaorec_tpu_torch.ops.fused_attn import fused_mha, fused_mha_bwd
-    from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
-    from chaorec_tpu_torch.ops.row_adam import fused_row_adam
-    from chaorec_tpu_torch.ops.streaming_lse import (streaming_lse_dk, streaming_lse_dq,
-                                                     streaming_lse_fwd)
+    from chaorec_tpu_torch.ops import kernel_wrappers as wrappers
 
-    return (fused_mha, fused_mha_bwd, fused_row_adam, streaming_lse_fwd, streaming_lse_dq,
-            streaming_lse_dk, prefix_cumsum)
+    return wrappers()
 
 
 def reset_counts():
@@ -1010,38 +1042,11 @@ def lse_phase(gen, device) -> dict:
     main shapes and NCL's prototypes (LSE_TIMED). Returns {"max_abs_err":
     {kernel: err}, side: {kernel: {kernel (the CUDA kernel that ran), ms,
     plain_ms, library_ms, bound_ms, bound_by}}}."""
-    from chaorec_tpu_torch.ops.streaming_lse import (FWD_BLOCKS_PER_SM, fwd64_blocks_per_sm,
-                                                     streaming_logsumexp,
-                                                     streaming_logsumexp_reference)
+    from chaorec_tpu_torch.ops.streaming_lse import FWD_BLOCKS_PER_SM, fwd64_blocks_per_sm
 
     errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
     for shape in LSE_SHAPES:
-        b, n, e, temp, k_grad = shape
-        q, k, g = lse_inputs(gen, shape, device)
-        inputs = (q, k) if k_grad else (q,)
-        before = lse_counts()
-        got = streaming_logsumexp(q, k)
-        grads = torch.autograd.grad(got, inputs, g)
-        torch.cuda.synchronize()
-        launched = tuple(a - c for a, c in zip(lse_counts(), before))
-        check(launched == (1, 1, int(k_grad)), f"lse {shape} launched {launched}")
-        want = streaming_logsumexp_reference(q, k)
-        wgrads = torch.autograd.grad(want, inputs, g)
-        fwd_share = tol_share(got, want, **LSE_TOL)
-        errs["fwd"] = max(errs["fwd"], (got - want).abs().max().item())
-        rel_tol = LSE_BWD_REL_TOL * max(1.0, 0.1 / temp)
-        rels = []
-        for name, a, w in zip(("dq", "dk"), grads, wgrads):
-            err = (a - w).abs().max().item()
-            errs[name] = max(errs[name], err)
-            rels.append(err / w.abs().max().item())
-        say("kernel", f"streaming_logsumexp ({b}, {n}, {e}) at temperature {temp}, k "
-            f"{'with' if k_grad else 'without'} gradient: launches fwd/dq/dk {launched}; "
-            f"fwd max abs err {(got - want).abs().max().item():.3e} ({fwd_share:.3f} of rtol/atol "
-            f"1e-5); dq{', dk' if k_grad else ''} max abs err / max |plain| "
-            + ", ".join(f"{r:.2e}" for r in rels) + f" (bound {rel_tol:g})")
-        check(fwd_share <= 1.0 and max(rels) <= rel_tol, f"streaming_logsumexp {shape} disagrees")
-        del q, k, g, got, grads, want, wgrads
+        lse_hold(gen, device, shape, errs)
 
     for frag, what in (("lse_fwd64_kernel", "forward"), ("lse_bwd64_kernel", "")):
         ptxas = ptxas_entries("streaming_lse", frag)
@@ -5394,19 +5399,27 @@ def resume_phase(args, device, datasets) -> dict:
     return out
 
 
-def elastic_phase(args, fds, full) -> float:
+class ElasticRun:
     """Phase 68: the supervisor relaunches a SIGKILLed CLI child, which
-    resumes from its checkpoint. ``full`` is phase 67's uninterrupted
-    FREEDOM run, whose epoch lines the relaunch must repeat. Returns the
-    phase's seconds."""
-    from chaorec_tpu_torch.data.loading import data_load
+    resumes from its checkpoint. The supervisor starts here, with
+    FREEDOM's set written in the loader's format, and runs beside the
+    script's later phases (48-67); a thread SIGKILLs its CLI child as soon
+    as the child's first checkpoint exists. ``collect`` waits for it and
+    holds the relaunched run to phase 67's uninterrupted FREEDOM run. An
+    exit of this interpreter ends the supervisor still running; ``stop``
+    removes its directory."""
 
-    t_start = time.perf_counter()
-    # absolute: the child runs from the checkout's root, the script from anywhere
-    log_dir = os.path.abspath(os.path.join(args.out_dir, "elastic"))
-    os.makedirs(log_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = write_loader_files(fds, os.path.join(tmp, "data"))
+    def __init__(self, args, fds):
+        from chaorec_tpu_torch.data.loading import data_load
+
+        t_start = time.perf_counter()
+        self.sup = None
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+        atexit.register(self.stop)
+        # absolute: the child runs from the checkout's root, the script from anywhere
+        self.log_dir = os.path.abspath(os.path.join(args.out_dir, "elastic"))
+        os.makedirs(self.log_dir, exist_ok=True)
+        root = write_loader_files(fds, os.path.join(self.tmp, "data"))
         back = data_load(fds.name, root, has_v=True, has_t=True)
         check(all(np.array_equal(getattr(back, k), getattr(fds, k)) for k in (
             "train_edges", "val_users", "test_users", "v_feat", "t_feat")) and all(
@@ -5414,65 +5427,92 @@ def elastic_phase(args, fds, full) -> float:
             for k in ("history", "val_pos", "test_pos")),
             "the written set does not load back as the phase's set")
         del back
-        write_s = time.perf_counter() - t_start
-        ckpt = os.path.join(tmp, "ckpt")
+        self.name = fds.name
+        self.write_s = time.perf_counter() - t_start
+        self.ckpt = os.path.join(self.tmp, "ckpt")
         cmd = [sys.executable, "-m", "chaorec_tpu_torch.elastic", "--retries", "2", "--",
                sys.executable, "-m", "chaorec_tpu_torch.cli", "--Model", "FREEDOM",
                "--data_path", fds.name, "--data_root", root, "--num_epoch", str(RESUME_EPOCHS),
-               "--checkpoint_dir", ckpt, "--checkpoint_every", "1", "--seed", str(args.seed),
-               "--log_dir", log_dir]
-        out_path = os.path.join(log_dir, "supervisor.txt")
-        step1 = os.path.join(ckpt, "combo_0", "step_1")
-        t0 = time.perf_counter()
-        with open(out_path, "w") as out:
-            sup = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
-                                   cwd=os.path.dirname(os.path.abspath(__file__)))
-        killed = None
+               "--checkpoint_dir", self.ckpt, "--checkpoint_every", "1", "--seed",
+               str(args.seed), "--log_dir", self.log_dir]
+        self.out_path = os.path.join(self.log_dir, "supervisor.txt")
+        self.killed = self.kids = self.run_s = None
+        self.t0 = time.perf_counter()
+        with open(self.out_path, "w") as out:
+            self.sup = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                        cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _watch(self) -> None:
+        """Kills the CLI child once combo_0/step_1 exists; ends the
+        supervisor past ELASTIC_TIMEOUT_S."""
+        step1 = os.path.join(self.ckpt, "combo_0", "step_1")
+        sup = self.sup
         try:
-            while sup.poll() is None and time.perf_counter() - t0 < ELASTIC_TIMEOUT_S:
-                if killed is None and os.path.isdir(step1):
-                    kids = child_pids(sup.pid)
-                    check(len(kids) == 1, f"the supervisor has children {kids}, expected one")
-                    os.kill(kids[0], signal.SIGKILL)
-                    killed = time.perf_counter() - t0
+            while sup.poll() is None and time.perf_counter() - self.t0 < ELASTIC_TIMEOUT_S:
+                if self.killed is None and os.path.isdir(step1):
+                    self.kids = child_pids(sup.pid)
+                    if len(self.kids) != 1:
+                        break
+                    os.kill(self.kids[0], signal.SIGKILL)
+                    self.killed = time.perf_counter() - self.t0
                 time.sleep(0.02)
         finally:
             if sup.poll() is None:
                 kill_tree(sup.pid)
                 sup.wait()
-        run_s = time.perf_counter() - t0
-        with open(out_path) as fh:
+            self.run_s = time.perf_counter() - self.t0
+
+    def collect(self, full) -> float:
+        """Waits for the supervisor and checks its run; ``full`` is phase
+        67's uninterrupted FREEDOM run, whose epoch lines the relaunch must
+        repeat. Returns the seconds this call waited."""
+        t_start = time.perf_counter()
+        self.watcher.join()
+        with open(self.out_path) as fh:
             sup_out = fh.read()
-        cursor_path = os.path.join(ckpt, "grid_cursor.json")
+        cursor_path = os.path.join(self.ckpt, "grid_cursor.json")
         cursor = {}
         if os.path.exists(cursor_path):
             with open(cursor_path) as fh:
                 cursor = json.load(fh)
-    check(killed is not None, "combo_0/step_1 never appeared: no child was killed")
-    check(run_s < ELASTIC_TIMEOUT_S and sup.returncode == 0,
-          f"the supervisor exited {sup.returncode} after {run_s:.1f} s (see {out_path})")
-    check("# elastic: attempt 1 exited rc=-9" in sup_out and "launch attempt 2" in sup_out,
-          "the supervisor did not relaunch the killed child")
-    messages = log_messages(os.path.join(log_dir, f"FREEDOM_{fds.name}.log"))
-    start = next(i for i, m in enumerate(messages) if m.startswith("=========1/1"))
-    first = next(m for m in messages[start:] if m.startswith(("resumed from", "Epoch ")))
-    mt = re.match(r"resumed from checkpoint at epoch (\d+)$", first)
-    check(mt is not None, f"the relaunched run starts with {first!r}, not its resume")
-    n = int(mt.group(1))
-    got, want = epoch_lines(messages), epoch_lines(full["messages"])
-    check(1 <= n < RESUME_EPOCHS and sorted(got) == list(range(n + 1, RESUME_EPOCHS + 1)),
-          f"resumed at {n}, epochs logged {sorted(got)}")
-    check(all(got[e] == want[e] for e in got),
-          "the relaunched run's epoch lines differ from phase 67's uninterrupted run's")
-    check({int(k): v for k, v in cursor.get("0", {}).items()} == full["best"],
-          f"the grid cursor holds {cursor}, not combo 0's best metrics")
-    say("elastic", f"FREEDOM's set written in the loader's format and loaded back equal "
-        f"({write_s:.2f} s); supervisor + CLI child, --num_epoch {RESUME_EPOCHS}, a checkpoint "
-        f"each epoch: child SIGKILLed {killed:.2f} s in (combo_0/step_1 written), relaunched "
-        f"(rc -9 seen, the card probed), resumed at epoch {n}, epochs "
-        f"{n + 1}-{RESUME_EPOCHS} equal to phase 67's lines, cursor records combo 0 with the "
-        f"uninterrupted run's best metrics; supervisor exit 0 after {run_s:.2f} s")
-    return time.perf_counter() - t_start
+        self.stop()
+        check(self.kids is None or len(self.kids) == 1,
+              f"the supervisor has children {self.kids}, expected one")
+        check(self.killed is not None, "combo_0/step_1 never appeared: no child was killed")
+        check(self.run_s < ELASTIC_TIMEOUT_S and self.sup.returncode == 0,
+              f"the supervisor exited {self.sup.returncode} after {self.run_s:.1f} s (see "
+              f"{self.out_path})")
+        check("# elastic: attempt 1 exited rc=-9" in sup_out and "launch attempt 2" in sup_out,
+              "the supervisor did not relaunch the killed child")
+        messages = log_messages(os.path.join(self.log_dir, f"FREEDOM_{self.name}.log"))
+        start = next(i for i, m in enumerate(messages) if m.startswith("=========1/1"))
+        first = next(m for m in messages[start:] if m.startswith(("resumed from", "Epoch ")))
+        mt = re.match(r"resumed from checkpoint at epoch (\d+)$", first)
+        check(mt is not None, f"the relaunched run starts with {first!r}, not its resume")
+        n = int(mt.group(1))
+        got, want = epoch_lines(messages), epoch_lines(full["messages"])
+        check(1 <= n < RESUME_EPOCHS and sorted(got) == list(range(n + 1, RESUME_EPOCHS + 1)),
+              f"resumed at {n}, epochs logged {sorted(got)}")
+        check(all(got[e] == want[e] for e in got),
+              "the relaunched run's epoch lines differ from phase 67's uninterrupted run's")
+        check({int(k): v for k, v in cursor.get("0", {}).items()} == full["best"],
+              f"the grid cursor holds {cursor}, not combo 0's best metrics")
+        say("elastic", f"FREEDOM's set written in the loader's format and loaded back equal "
+            f"({self.write_s:.2f} s); supervisor + CLI child, --num_epoch {RESUME_EPOCHS}, a "
+            f"checkpoint each epoch, beside phases 48-67: child SIGKILLed {self.killed:.2f} s in "
+            f"(combo_0/step_1 written), relaunched (rc -9 seen, the card probed), resumed at "
+            f"epoch {n}, epochs {n + 1}-{RESUME_EPOCHS} equal to phase 67's lines, cursor "
+            f"records combo 0 with the uninterrupted run's best metrics; supervisor exit 0 "
+            f"after {self.run_s:.2f} s")
+        return time.perf_counter() - t_start
+
+    def stop(self) -> None:
+        if self.sup is not None and self.sup.poll() is None:
+            kill_tree(self.sup.pid)
+            self.sup.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def trace_phase(args, device, fds, full) -> dict:
@@ -5538,21 +5578,452 @@ def trace_phase(args, device, fds, full) -> dict:
                 with_s=with_s, without_s=without_s)
 
 
-def resume_phases(args, device, datasets) -> tuple:
-    """Phases 67-69. Returns (their seconds, phase 67's resumed runs'
-    launches by model, phase 69's trace numbers)."""
+def resume_phases(args, device, datasets, elastic: ElasticRun) -> tuple:
+    """Phases 67-69 (68's supervisor, ``elastic``, started before phase
+    48). Returns (their seconds, phase 67's resumed runs' launches by
+    model, phase 69's trace numbers)."""
     t_start = time.perf_counter()
     t0 = time.perf_counter()
     resumed = resume_phase(args, device, datasets)
     say("resume", f"phase 67: {time.perf_counter() - t0:.1f} s")
     full = resumed["FREEDOM"]["full"]
-    elastic_s = elastic_phase(args, datasets[FREEDOM_DATASET], full)
-    say("elastic", f"phase 68: {elastic_s:.1f} s")
+    waited = elastic.collect(full)
+    say("elastic", f"phase 68: {elastic.run_s:.1f} s beside phases 48-67, {waited:.1f} s "
+        f"waited for here")
     t0 = time.perf_counter()
     trace = trace_phase(args, device, datasets[FREEDOM_DATASET], full)
     say("trace", f"phase 69: {time.perf_counter() - t0:.1f} s")
     return (time.perf_counter() - t_start,
             {name: r["launches"] for name, r in resumed.items()}, trace)
+
+
+# Phases 70-72: the mesh through the CLI's own spawn, ranks on the one card
+MESH_RUNS = (("FREEDOM", "dp=1,mp=1"), ("FREEDOM", "dp=1,mp=3"), ("SGL", "dp=2"))
+MESH_TIMEOUT_S = 300  # one CLI child: its ranks' start, the set's load, the build, an epoch
+# K1 at a rank's shard of FREEDOM's tables under mp=3, K2 at SGL's half batch under dp=2
+MESH_ROW_ADAM = tuple((name, (n // 3, d)) for name, (n, d) in ROW_ADAM_SHAPES)
+MESH_LSE = {side: (shape[0] // 2,) + shape[1:] for side, shape in LSE_MAIN.items()}
+# a dp split sums each gradient in another order: tests/test_parallel.py's loss tolerance
+MESH_LOSS_RTOL = 1e-4
+# ... and so may move a param as far as that reordering moves it on one device
+# (an epoch with each batch's rows permuted), times this; a planted fault moves
+# SGL's params 43-208x that far (scripts/probe_dp_split_drift.py, PERF.md)
+MESH_DRIFT_FACTOR = 4.0
+
+
+def lse_hold(gen, device, shape, errs: dict) -> None:
+    """K2's forward, dq and (k with a gradient) dk at ``shape`` against
+    the plain version and its autograd; ``errs`` keeps each kernel's
+    largest abs error."""
+    from chaorec_tpu_torch.ops.streaming_lse import (streaming_logsumexp,
+                                                     streaming_logsumexp_reference)
+
+    b, n, e, temp, k_grad = shape
+    q, k, g = lse_inputs(gen, shape, device)
+    inputs = (q, k) if k_grad else (q,)
+    before = lse_counts()
+    got = streaming_logsumexp(q, k)
+    grads = torch.autograd.grad(got, inputs, g)
+    torch.cuda.synchronize()
+    launched = tuple(a - c for a, c in zip(lse_counts(), before))
+    check(launched == (1, 1, int(k_grad)), f"lse {shape} launched {launched}")
+    want = streaming_logsumexp_reference(q, k)
+    wgrads = torch.autograd.grad(want, inputs, g)
+    fwd_share = tol_share(got, want, **LSE_TOL)
+    errs["fwd"] = max(errs["fwd"], (got - want).abs().max().item())
+    rel_tol = LSE_BWD_REL_TOL * max(1.0, 0.1 / temp)
+    rels = []
+    for name, a, w in zip(("dq", "dk"), grads, wgrads):
+        err = (a - w).abs().max().item()
+        errs[name] = max(errs[name], err)
+        rels.append(err / w.abs().max().item())
+    say("kernel", f"streaming_logsumexp ({b}, {n}, {e}) at temperature {temp}, k "
+        f"{'with' if k_grad else 'without'} gradient: launches fwd/dq/dk {launched}; "
+        f"fwd max abs err {(got - want).abs().max().item():.3e} ({fwd_share:.3f} of rtol/atol "
+        f"1e-5); dq{', dk' if k_grad else ''} max abs err / max |plain| "
+        + ", ".join(f"{r:.2e}" for r in rels) + f" (bound {rel_tol:g})")
+    check(fwd_share <= 1.0 and max(rels) <= rel_tol, f"streaming_logsumexp {shape} disagrees")
+
+
+def k1_shard_phase(gen, device, full_rows: int) -> dict:
+    """K1 (through table_adam_update, as a mesh rank calls it) at each mp=3
+    shard of FREEDOM's tables: one step of a batch's 2048 rows of the whole
+    table, the rows rank 0 does not own mapped to the shard's padding id,
+    against row_adam_update on the rows it owns; then its times beside the
+    plain version, the library's step and the bound. Returns per table
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    from chaorec_tpu_torch.ops.indexed_adam import (init_table_state, row_adam_update,
+                                                    table_adam_update)
+    from chaorec_tpu_torch.ops.row_adam import (fused_row_adam, prepare_sorted_rows,
+                                                row_adam_reference)
+
+    out = {}
+    for name, (n, d) in MESH_ROW_ADAM:
+        p0 = torch.randn((n, d), generator=gen, device=device)
+        rows = row_adam_rows(gen, full_rows, 2048, device)
+        local = torch.where(rows < n, rows, torch.full_like(rows, n))  # rank 0 owns [0, n)
+        g = torch.randn((2048, d), generator=gen, device=device)
+        count = torch.tensor(1, dtype=torch.int32, device=device)
+        before = fused_row_adam.launches
+        kp, ks = table_adam_update(p0.clone(), init_table_state(p0), local, g, count,
+                                   ROW_ADAM_LR)
+        torch.cuda.synchronize()
+        check(fused_row_adam.launches == before + 1, "table_adam_update did not launch")
+        own = rows < n
+        pp, ps = row_adam_update(p0.clone(), init_table_state(p0), rows[own], g[own], count,
+                                 ROW_ADAM_LR)
+        worst, err = 0.0, 0.0
+        for got, want, tol in ((kp, pp, ROW_P_TOL), (ks.m, ps.m, ROW_P_TOL),
+                               (ks.v, ps.v, ROW_V_TOL)):
+            worst = max(worst, tol_share(got, want, **tol))
+            err = max(err, (got - want).abs().max().item())
+        check(worst <= 1.0, f"fused_row_adam at the shard {name} ({n}, {d}) disagrees")
+        r_s, g_s = prepare_sorted_rows(local, g, n)
+        distinct = int((r_s < n).sum())
+        m = torch.rand((n, d), generator=gen, device=device) * 1e-3
+        v = torch.rand((n, d), generator=gen, device=device) * 1e-6
+        ms = cuda_ms(lambda: fused_row_adam(kp, m, v, r_s, g_s, count, ROW_ADAM_LR), 20)
+        plain_ms = cuda_ms(lambda: row_adam_reference(kp, m, v, r_s, g_s, count, ROW_ADAM_LR), 5)
+        bms, by = bound_ms(10 * n * d, 6 * n * d * 4 + distinct * d * 4 + 2048 * 4 + 4)
+        lib_p = torch.nn.Parameter(kp.clone())
+        opt = torch.optim.Adam([lib_p], lr=ROW_ADAM_LR, fused=True)
+        idx, g_own = local[own], g[own]
+
+        def library():
+            lib_p.grad = torch.zeros_like(lib_p).index_add_(0, idx, g_own)
+            opt.step()
+
+        library_ms = cuda_ms(library, 10)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bms, bound_by=by)
+        say("mesh", f"fused_row_adam at rank 0's mp=3 shard of {name} ({n}, {d}) fp32, 2048 "
+            f"rows of the batch ({distinct} its own, the rest the padding id): vs row_adam_update "
+            f"max abs err {err:.3e} ({worst:.3f} of its tolerance); kernel {ms:.4f} ms "
+            f"({100 * bms / ms:.1f}% of its bound), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), library (zeros + index_add_ + Adam(fused=True).step) {library_ms:.4f} ms")
+        del p0, kp, ks, pp, ps, m, v, lib_p, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def k2_half_phase(gen, device) -> dict:
+    """K2 at SGL's dp=2 half batch (512 rows of q against the whole user
+    and item tables): held to the plain version, then timed. Returns
+    {"max_abs_err": {kernel: err}, side: {kernel: timings}}."""
+    errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
+    for shape in MESH_LSE.values():
+        lse_hold(gen, device, shape, errs)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {"max_abs_err": errs}
+    for side, shape in MESH_LSE.items():
+        q, k, g = lse_inputs(gen, shape, device)
+        out[side] = lse_timings("mesh", f"SGL dp=2 {side}", q.detach(), k.detach(), g, True,
+                                sms)
+        del q, k, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def single_run(cfg, ds, device, ckpt: str, log_dir: str) -> dict:
+    """``cfg``'s trainer on one device, one epoch, a checkpoint in
+    ``ckpt``: its loss, the sha256 of its rank lists, its launches (counted
+    from 0 just before), seconds and peak device memory."""
+    from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.train import loop
+
+    cfg = cfg.replace(num_epoch=1, checkpoint_dir=ckpt, checkpoint_every=1, log_dir=log_dir)
+    cli.setup_logging(cfg)
+    trainer = loop.Trainer(build_model(cfg, ds, device), ds, cfg)
+    seen = {}
+    epoch_fn, evaluate = trainer.train_epoch, trainer.evaluate
+
+    def train_epoch(params, optimizer):
+        seen["loss"] = epoch_fn(params, optimizer)
+        return seen["loss"]
+
+    def evaluate_and_keep(params):
+        out = evaluate(params)
+        seen["rank_list"] = out[2].cpu()
+        seen["lists"] = hashlib.sha256(seen["rank_list"].numpy().tobytes()).hexdigest()
+        return out
+
+    trainer.train_epoch, trainer.evaluate = train_epoch, evaluate_and_keep
+    cuda = torch.device(device).type == "cuda"  # scripts/probe_dp_split_drift.py runs it on the CPU
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run()
+    if cuda:
+        torch.cuda.synchronize()
+    out = dict(seen, seconds=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else math.nan,
+               launches={f.__name__: f.launches for f in kernel_wrappers()})
+    del trainer, train_epoch, evaluate_and_keep, epoch_fn, evaluate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class MeshRuns:
+    """Phases 70-72's CLI children (MESH_RUNS), started together, with
+    the sports-sized set written in the loader's format, while the script
+    goes on with its earlier phases (the children spawn their ranks on this
+    card; phase 70 collects them). Each child is ``python -m
+    chaorec_tpu_torch.cli`` of its model's first combo with ``--mesh_shape``,
+    one epoch and a checkpoint. An exit of this interpreter ends any child
+    still running; ``stop`` removes their directory."""
+
+    def __init__(self, args, fds):
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        atexit.register(self.stop)
+        self.root = write_loader_files(fds, os.path.join(self.tmp, "data"))
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        self.runs = []
+        for model, spec in MESH_RUNS:
+            run_dir = os.path.join(self.tmp, f"{model}-{spec}")
+            os.makedirs(os.path.join(run_dir, "Model_YAML"))
+            with open(os.path.join(run_dir, "Model_YAML", f"{model}.yaml"), "w") as fh:
+                json.dump(first_combo(model)[1], fh)  # JSON is YAML
+            log_dir = os.path.abspath(os.path.join(args.out_dir, "mesh", f"{model}-{spec}"))
+            os.makedirs(log_dir, exist_ok=True)
+            run = dict(model=model, spec=spec, log_dir=log_dir,
+                       state=os.path.join(run_dir, "ckpt", "combo_0", "step_1", "state.pt"))
+            cmd = [sys.executable, "-m", "chaorec_tpu_torch.cli", "--Model", model,
+                   "--data_path", FREEDOM_DATASET, "--data_root", self.root, "--num_epoch", "1",
+                   "--seed", str(args.seed), "--checkpoint_dir", os.path.join(run_dir, "ckpt"),
+                   "--checkpoint_every", "1", "--log_dir", log_dir, "--mesh_shape", spec]
+            with open(os.path.join(log_dir, "child.txt"), "w") as out:
+                run["t0"] = time.perf_counter()
+                run["proc"] = subprocess.Popen(cmd, cwd=run_dir, env=env, stdout=out,
+                                               stderr=subprocess.STDOUT)
+            # the child's end, read off the clock as it exits
+            run["waiter"] = ThreadPoolExecutor(1)
+            run["end"] = run["waiter"].submit(lambda p=run["proc"]: (p.wait(),
+                                                                     time.perf_counter()))
+            self.runs.append(run)
+
+    def collect(self) -> list:
+        """Each child's run once it has ended: its seconds, its log's
+        messages, each rank's peak memory (GiB) and launches, and its
+        checkpoint's file."""
+        out = []
+        for run in self.runs:
+            rc, end = run["end"].result(timeout=MESH_TIMEOUT_S)
+            run["waiter"].shutdown()
+            with open(os.path.join(run["log_dir"], "child.txt")) as fh:
+                tail = fh.read()[-3000:]
+            check(rc == 0, f"{run['model']} --mesh_shape {run['spec']} exited {rc}: {tail}")
+            messages = log_messages(os.path.join(run["log_dir"],
+                                                 f"{run['model']}_{FREEDOM_DATASET}.log"))
+            ranks = {}
+            for m in messages:
+                if mt := re.match(rf"mesh {re.escape(spec_of(run['spec']))} rank (\d+) \(dp \d+, "
+                                  r"mp \d+\): peak device memory (.+?); kernel launches (.*)$", m):
+                    peak = mt.group(2)
+                    ranks[int(mt.group(1))] = dict(
+                        peak_gib=float(peak[:-4]) if peak.endswith(" GiB") else math.nan,
+                        launches={k: int(v) for k, v in
+                                  (x.split() for x in mt.group(3).split(", "))})
+            out.append(dict(model=run["model"], spec=run["spec"], seconds=end - run["t0"],
+                            messages=messages, ranks=ranks, state=run["state"]))
+        return out
+
+    def stop(self) -> None:
+        for run in self.runs:
+            if run["proc"].poll() is None:
+                kill_tree(run["proc"].pid)
+                run["proc"].wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def spec_of(spec: str) -> str:
+    """``--mesh_shape``'s spelling as the port logs it ("dp=2" is "dp=2,mp=1")."""
+    from chaorec_tpu_torch.parallel.mesh import parse_mesh_spec
+
+    dp, mp = parse_mesh_spec(spec)
+    return f"dp={dp},mp={mp}"
+
+
+def mesh_epoch_line(messages: list, spec: str) -> tuple:
+    """(loss, rank lists sha256, replicated params sha256, ranks) of the
+    mesh's epoch-1 line."""
+    for m in messages:
+        if mt := re.match(rf"mesh {re.escape(spec_of(spec))} epoch 1: loss (\S+), rank lists "
+                          r"sha256 (\w+), replicated params sha256 (\w+), the same on all "
+                          r"(\d+) ranks$", m):
+            return float.fromhex(mt.group(1)), mt.group(2), mt.group(3), int(mt.group(4))
+    raise AssertionError(f"no epoch line of mesh {spec}")
+
+
+def top_share(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The mean share of a user's list in ``a`` that is in its list in ``b``."""
+    return float(np.mean([len(set(x) & set(y)) / len(x)
+                          for x, y in zip(a.tolist(), b.tolist())]))
+
+
+def row_permuted(loss_fn, seed: int = 1):
+    """``loss_fn`` on each batch's rows permuted (the same loss, its sums
+    taken in another order)."""
+    perm_gen = torch.Generator().manual_seed(seed)
+
+    def loss(p, b, g):
+        perm = torch.randperm(b.users.shape[0], generator=perm_gen).to(b.users.device)
+        return loss_fn(p, dataclasses.replace(
+            b, users=b.users[perm], weights=b.weights[perm], pos_items=b.pos_items[perm],
+            neg_items=b.neg_items[perm]), g)
+
+    return loss
+
+
+def permuted_epoch(cfg, ds, device) -> dict:
+    """One epoch of ``cfg``'s trainer on one device with each batch's rows
+    permuted, then an evaluation: its loss, params and rank lists."""
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.train import loop
+
+    trainer = loop.Trainer(build_model(cfg, ds, device), ds, cfg)
+    params = trainer.init_params()
+    optimizer = trainer.make_optimizer(params)
+    trainer.model.loss = row_permuted(trainer.model.loss)
+    trainer.model.pre_epoch(params, 0)
+    loss = trainer.train_epoch(params, optimizer)
+    rank_list = trainer.evaluate(params)[2].cpu()
+    out = dict(loss=loss, params={k: v.detach().cpu() for k, v in params.items()},
+               rank_list=rank_list)
+    del trainer, params, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def param_drift(params: dict, want: dict) -> dict:
+    """Each param's largest abs difference from ``want``'s."""
+    return {k: (params[k].float().cpu() - want[k].float().cpu()).abs().max().item()
+            for k in want}
+
+
+def split_lists(args, model: str, ds, device, state: str, ref_state: str) -> dict:
+    """The rank lists one device's trainer gives at the params of the
+    checkpoint ``state`` (with their sha256), and each param's largest
+    abs difference from ``ref_state``'s (``drift``)."""
+    from chaorec_tpu_torch.models import build_model
+    from chaorec_tpu_torch.train import loop
+
+    cfg, _ = path_config(model, args)
+    params = torch.load(state, map_location=device, weights_only=True)["params"]
+    want = torch.load(ref_state, map_location=device, weights_only=True)["params"]
+    trainer = loop.Trainer(build_model(cfg, ds, device), ds, cfg)
+    rank_list = trainer.evaluate(params)[2].cpu()
+    drift = param_drift(params, want)
+    del trainer, params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank_list=rank_list, drift=drift,
+                sha=hashlib.sha256(rank_list.numpy().tobytes()).hexdigest())
+
+
+def mesh_phases(args, device, fds, children: MeshRuns) -> tuple:
+    """Phases 70-72: the CLI's self-spawned mesh on this card. (70) FREEDOM
+    under dp=1,mp=1, a world of one over NCCL, and (71) under dp=1,mp=3,
+    three gloo ranks sharing the card (the 15207-row tables shard at mp=3
+    only; the 28940-row user table stays whole), each bit-equal to the
+    single-device trainer (loss, rank lists, checkpoint: params, Adam,
+    tables' moments, generator), K1 launched on every rank and held at the
+    shards' shape; (72) SGL under dp=2, two gloo ranks each stepping half
+    of every batch through K2 (held and timed at that shape), its loss
+    within MESH_LOSS_RTOL of the single-device run's, its replicated
+    params bit-equal on both ranks, its rank lists (which rank 0's
+    checkpointed params give here too) within TOPK_AGREE_MIN of one
+    device's and each param within MESH_DRIFT_FACTOR times the drift an
+    epoch with each batch's rows permuted shows on one device: the split
+    sums each gradient in another order (and rounds each slice's
+    propagated gradient to bf16), Adam turns the sign of some near-zero
+    sums, and the bf16 scores of a random-weight set hold near ties.
+    Returns (seconds, K1 at the shards, K2
+    at the half batch, each run's ranks' launches by spec). The three CLI
+    children (``children``) ran together beside the earlier phases; the
+    references, the holds and the checks run here."""
+    t_start = time.perf_counter()
+    k1 = k1_shard_phase(torch.Generator(device=device).manual_seed(args.seed + 70), device,
+                        fds.num_item)
+    k2 = k2_half_phase(torch.Generator(device=device).manual_seed(args.seed + 72), device)
+    launches = {}
+    refs = {}
+    for model in ("FREEDOM", "SGL"):
+        cfg, _ = path_config(model, args)
+        ckpt = os.path.join(children.tmp, f"{model}-single")
+        refs[model] = single_run(cfg, fds, device, ckpt,
+                                 os.path.join(args.out_dir, "mesh", f"{model}-single"))
+        refs[model]["state"] = os.path.join(ckpt, "step_1", "state.pt")
+        say("mesh", f"{model} on one device, 1 epoch: loss {refs[model]['loss']!r}, "
+            f"{refs[model]['seconds']:.2f} s, peak {refs[model]['peak_gib']:.2f} GiB, "
+            f"launches { {k: v for k, v in refs[model]['launches'].items() if v} }")
+    for phase, run in zip((70, 71, 72), children.collect()):
+        model, spec = run["model"], run["spec"]
+        ref = refs[model]
+        loss, lists, replicated, n_ranks = mesh_epoch_line(run["messages"], spec)
+        world = math.prod(int(x.split("=")[1]) for x in spec_of(spec).split(","))
+        backend = next(m for m in run["messages"] if m.startswith(f"mesh {spec_of(spec)}: "))
+        check(n_ranks == world and sorted(run["ranks"]) == list(range(world)),
+              f"{spec}: {n_ranks} ranks agree, {sorted(run['ranks'])} reported")
+        check(("NCCL" in backend) == (world == 1), f"{spec}: {backend}")
+        expect = ref["launches"]
+        for r, rank in run["ranks"].items():
+            check(rank["launches"] == expect,
+                  f"{spec} rank {r} launched {rank['launches']}, one device {expect}")
+        launches[spec] = {r: rank["launches"] for r, rank in run["ranks"].items()}
+        if model == "FREEDOM":
+            want = torch.load(ref["state"], map_location="cpu", weights_only=True)
+            got = torch.load(run["state"], map_location="cpu", weights_only=True)
+            same = {k: same_bits(got[k], want[k]) for k in want}
+            check(loss == ref["loss"] and lists == ref["lists"] and all(same.values()),
+                  f"{spec}: loss {loss!r} vs {ref['loss']!r}, rank lists {lists == ref['lists']}"
+                  f", checkpoint {same}")
+            verdict = (f"bit-equal to one device: loss {loss!r}, rank lists sha256 "
+                       f"{lists[:16]}, checkpoint (" + ", ".join(same) + ")")
+        else:
+            rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+            check(rel <= MESH_LOSS_RTOL, f"{spec}: loss {loss!r} vs {ref['loss']!r}")
+            split = split_lists(args, model, fds, device, run["state"], ref["state"])
+            check(split["sha"] == lists, f"{spec}: its params rank to other lists here")
+            overlap = top_share(split["rank_list"], ref["rank_list"])
+            differ = int((split["rank_list"] != ref["rank_list"]).any(1).sum())
+            cfg, _ = path_config(model, args)
+            perm = permuted_epoch(cfg, fds, device)
+            want = torch.load(ref["state"], map_location="cpu", weights_only=True)["params"]
+            perm_drift = param_drift(perm["params"], want)
+            perm_overlap = top_share(perm["rank_list"], ref["rank_list"])
+            perm_differ = int((perm["rank_list"] != ref["rank_list"]).any(1).sum())
+            bound = MESH_DRIFT_FACTOR * max(perm_drift.values())
+            say("mesh", f"phase {phase}: {model} one epoch on one device with each batch's rows "
+                f"permuted: loss {perm['loss']!r} (rel "
+                f"{abs(perm['loss'] - ref['loss']) / abs(ref['loss']):.2e}); params vs one "
+                f"device's: " + ", ".join(f"{k} {v:.3e}" for k, v in perm_drift.items())
+                + f"; {perm_differ} users' lists differ, mean overlap {perm_overlap:.5f}")
+            check(overlap >= TOPK_AGREE_MIN, f"{spec}: rank lists overlap {overlap:.4f}")
+            check(max(split["drift"].values()) <= bound,
+                  f"{spec}: params {split['drift']} from one device's, past {bound:.3e}")
+            verdict = (f"loss {loss!r} vs one device {ref['loss']!r} (rel {rel:.2e}, "
+                       f"bound {MESH_LOSS_RTOL:g}); rank lists {'equal' if lists == ref['lists'] else 'differ'}: "
+                       f"{differ} of {len(ref['rank_list'])} users' top-"
+                       f"{ref['rank_list'].shape[1]} lists differ, mean overlap {overlap:.5f} "
+                       f"(bound {TOPK_AGREE_MIN}); the rank 0 checkpoint's params rank to "
+                       f"the logged lists here; params vs one device's: "
+                       + ", ".join(f"{k} {v:.3e}" for k, v in split["drift"].items())
+                       + f" (bound {bound:.3e}: {MESH_DRIFT_FACTOR:g}x the permuted run's "
+                       f"largest); replicated params sha256 {replicated[:16]} on both ranks")
+        say("mesh", f"phase {phase}: {model} --mesh_shape {spec} through the CLI's spawn, 1 "
+            f"epoch, {run['seconds']:.1f} s (one device's run {ref['seconds']:.1f} s); "
+            f"{backend.split('; ')[-1]}; {verdict}")
+        say("mesh", f"phase {phase}: peak device memory by rank "
+            + ", ".join(f"{r}: {v['peak_gib']:.3f} GiB" for r, v in run["ranks"].items())
+            + f" (one device {ref['peak_gib']:.3f} GiB); launches a rank "
+            + f"{ {k: v for k, v in expect.items() if v} } (one device's)")
+    return time.perf_counter() - t_start, k1, k2, launches
 
 
 def main(argv=None) -> int:
@@ -5561,6 +6032,7 @@ def main(argv=None) -> int:
     ap.add_argument("--data_root", default="")
     ap.add_argument("--out_dir", default="log")
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
 
     # 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5915,6 +6387,8 @@ def main(argv=None) -> int:
     bds = linear_dataset(args)
     linear_s = time.perf_counter() - t0 + linear_gcn_phases(args, device, bds)
     t0 = time.perf_counter()
+    # phases 70-72's CLI children run beside phases 34-69 (collected at 70)
+    mesh_children = MeshRuns(args, fds)
     det = determinism_phase(args, device, {DATASET: ds, FREEDOM_DATASET: fds,
                                            LINEAR_DATASET: bds})
     say("determinism", f"{len(DET_MODELS)} models twice on one seed: equal loss bits and rank "
@@ -5939,6 +6413,9 @@ def main(argv=None) -> int:
     say("fam2profile", f"phases 43-47's share of the run: {family2_s:.1f} s, their "
         f"{len(FAMILY2_MODELS + TOWER_MODELS)} models' determinism runs {family2_det_s:.1f} s; "
         f"{family2_s + family2_det_s:.1f} s in all")
+    # phase 68's supervisor and its CLI child run beside phases 48-67
+    # (collected at 68), once phases 70-72's children have had their time
+    elastic = ElasticRun(args, fds)
     towers2_s = towers2_phases(args, device, bds)
     towers2_det_s = sum(sum(det[n]["seconds"]) for n in TOWER2_MODELS)
     say("tw2profile", f"phases 48-50's share of the run: {towers2_s:.1f} s, their "
@@ -5965,8 +6442,12 @@ def main(argv=None) -> int:
         f"{len(DIFFUSION_MODELS)} models' determinism runs {diffusion_det_s:.1f} s; "
         f"{diffusion_s + diffusion_det_s:.1f} s in all")
     resume_s, resume_launches, trace = resume_phases(
-        args, device, {DATASET: ds, FREEDOM_DATASET: fds})
+        args, device, {DATASET: ds, FREEDOM_DATASET: fds}, elastic)
     say("trace", f"phases 67-69's share of the run: {resume_s:.1f} s")
+    mesh_s, k1_mesh, k2_mesh, mesh_launches = mesh_phases(args, device, fds, mesh_children)
+    mesh_children.stop()
+    say("mesh", f"phases 70-72's share of the run: {mesh_s:.1f} s")
+    say("result", f"the whole run to here: {time.perf_counter() - t_run:.1f} s")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
@@ -6132,6 +6613,33 @@ def main(argv=None) -> int:
                     "launches": resume_launches["DGCF"]["prefix_cumsum"],
                     "note": resumed_note.format("DGCF", RESUME_SPLIT, "prefix_scan@dgcf")
                     + "; library: torch.cumsum, one call"})
+    # the mesh (phases 71-72): launches summed over the run's ranks
+    k1_ranks = mesh_launches[MESH_RUNS[1][1]]
+    for name, shape in MESH_ROW_ADAM:
+        entries.append({
+            "name": f"fused_row_adam@mesh[{name}]", "route": "cuda",
+            "source": "chaorec_tpu_torch/csrc/row_adam.cu",
+            "replaces": "chaorec_tpu/ops/pallas_row_adam.py:44", "shape": list(shape),
+            "dtype": "float32",
+            "launches": sum(r["fused_row_adam"] for r in k1_ranks.values()),
+            **k1_mesh[name],
+            "note": f"launches: the FREEDOM --mesh_shape {MESH_RUNS[1][1]} CLI run's, its "
+                    f"{len(k1_ranks)} ranks' summed (each rank steps its shard of both tables "
+                    "every step); library: zeros + index_add_ + Adam(fused=True).step"})
+    k2_ranks = mesh_launches[MESH_RUNS[2][1]]
+    for side, (b, n, e, temp, _) in MESH_LSE.items():
+        for kernel, line in (("fwd", 44), ("dq", 95), ("dk", 116)):
+            entries.append({
+                "name": f"streaming_lse_{kernel}@mesh[{side}]", "route": "cuda",
+                "source": "chaorec_tpu_torch/csrc/streaming_lse.cu",
+                "replaces": f"chaorec_tpu/ops/pallas_lse.py:{line}", "shape": [b, n, e],
+                "temperature": temp,
+                "launches": sum(r[f"streaming_lse_{kernel}"] for r in k2_ranks.values()),
+                "max_abs_err": k2_mesh["max_abs_err"][kernel], **k2_mesh[side][kernel],
+                "note": f"launches: the SGL --mesh_shape {MESH_RUNS[2][1]} CLI run's, both "
+                        "ranks' summed, both sides (q: a rank's half of the batch's rows); "
+                        "library: torch.mm and torch.logsumexp"
+                        f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

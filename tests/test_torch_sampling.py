@@ -201,6 +201,8 @@ def test_freedom_last_batch_steps_the_jax_table_rows(tiny_dataset):
 
 @pytest.mark.parametrize("flag,value", [("mesh_shape", "dp=4")])
 def test_trainer_refuses_unported_flags(tiny_dataset, flag, value):
+    """The mesh is ported: what it still refuses is a mesh the world
+    cannot hold (this process is a world of one)."""
     tm = tbuild(TConfig(**DCCF), tiny_dataset, "cpu")
-    with pytest.raises(NotImplementedError, match=f"--{flag} .*ROADMAP Queue 1 item"):
+    with pytest.raises(ValueError, match=f"--{flag} {value} needs 4 ranks, the world has 1"):
         tloop.Trainer(tm, tiny_dataset, TConfig(**DCCF, **{flag: value}))
