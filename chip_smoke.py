@@ -133,7 +133,22 @@ published width with random weights from ``--seed``:
   card: FREEDOM as a world of one over NCCL and row-sharded over mp=3
   (three gloo ranks, K1 stepping each rank's (5069, .) shard of its
   tables), both bit-equal to one device; SGL split over dp=2 (two gloo
-  ranks, K2 on each rank's half of a batch).
+  ranks, K2 on each rank's half of a batch);
+- the large catalogs, on synthetic sets of their exact shapes (5-13 train
+  items a user drawn with the popularity skew of the sets above, as a
+  Gumbel top-k on the card), each model at its Model_YAML file's first
+  combo through the CLI's run: microlens (46420 users x 14079 items =
+  653.5 M cells, above dense_prop_threshold's 600 M, the CLI's default data
+  set): LightGCN and SGL on the segment graph (index_add_, no dense R, no
+  combined operator; SGL's contrasts through the streaming logsumexp
+  kernels at (1024, 46420) and (1024, 14079)), GUME on its dense bf16 R
+  (its 8e8-cell budget); electronics (150179 x 51901): LightGCN ranking
+  every user a 4096-user block at a time, DualGNN on the user
+  co-occurrence graph's sparse path (above 1.5 B cells; its host build
+  takes minutes), BSPM's randomized SVD (above 20000 items; on the first
+  30000 users); these CLI runs in a child process beside the earlier
+  phases; and the streaming logsumexp kernels at (1024, 150179) and (1024,
+  51901).
 
 Phases, each printing its own lines:
 
@@ -491,6 +506,40 @@ Phases, each printing its own lines:
             with the rows permuted: the same sums in another order), the
             replicated params bit-equal on both ranks, each rank's launches
             one device's
+73. catalog (73-78 run in a child process, ``chip_smoke.py
+            --catalog_child``, started before phase 34 beside phases 34-72
+            and collected after 72, its lines printed then; each ends with a
+            line of its wall, peak device memory, branch and kernel
+            launches) LightGCN cli.run on the
+            microlens-sized set, 2 epochs with --export_artifact: the
+            segment graph without a dense R or a combined operator (U x I
+            above dense_prop_threshold); each ranking pass's seconds and
+            peak, no score block wider than 4096 users; the export served
+            over HTTP; one step profiled (device time by kernel group)
+74. catalog SGL cli.run there, 1 epoch (K2 launches: 2 terms a step, each
+            kernel counted), on the segment graph; a step profiled; then, in
+            this process after the child, K2 at (1024, 46420, 64) and (1024,
+            14079, 64), temperature 0.1, against the plain version and its
+            autograd at phase 3's gates, then each kernel's time beside the
+            plain version's, the library route's and its bound
+75. catalog GUME cli.run there with the loader's synthetic features, 1
+            epoch: its dense bf16 R (U x I within its 8e8-cell budget, 1.31
+            GB); a step profiled and its fp32 copies in bdot's backward timed
+76. catalog LightGCN cli.run on the electronics-sized set, 1 epoch with
+            --export_artifact: the segment graph, no operator; the ranking
+            pass over 150179 users a 4096-user block at a time (its seconds
+            and peak, below one (U, I) fp32 table); the export served; a
+            step profiled
+77. catalog DualGNN cli.run on the
+            electronics-sized set with the loader's synthetic features, 1
+            epoch: the user co-occurrence graph's sparse path (U x I above
+            1.5 B cells; its host seconds and host peak, traced by
+            tracemalloc), topk_sample's seconds, a step profiled
+78. catalog BSPM cli.run on that set's first 30000 users, every item (the
+            item count picks the branch): the randomized SVD of R (counted),
+            one scoring pass and the export skipped, as phase 39
+79. catalog K2 at (1024, 150179, 64) and (1024, 51901, 64) held and timed
+            as in 74
 
 Then one JSON line about the kernels (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same
@@ -515,6 +564,7 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import inspect
 import json
 import logging
 import math
@@ -2910,8 +2960,12 @@ def family_cli_run(device, ds, name, cfg, grid) -> tuple:
         again.evaluate({})
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t1
-        say("family", f"BSPM: spectral build (C = R^T R on the card, eigsh of k = "
-            f"{model.b.shape[1]} on the host) {model.build_seconds:.3f} s; one evaluation pass "
+        from chaorec_tpu_torch.models.bspm import EIGSH_MAX_ITEMS
+
+        solver = ("eigsh on the host" if model.num_item <= EIGSH_MAX_ITEMS
+                  else "the randomized SVD of R on the card")
+        say("family", f"BSPM: spectral build (C = R^T R on the card, {solver}, k = "
+            f"{model.b.shape[1]}) {model.build_seconds:.3f} s; one evaluation pass "
             f"{eval_s:.3f} s ({ds.num_user / eval_s:.0f} users/s, {model.k_s} Euler steps), "
             f"again {warm_s:.3f} s ({ds.num_user / warm_s:.0f} users/s); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -5611,10 +5665,10 @@ MESH_LOSS_RTOL = 1e-4
 MESH_DRIFT_FACTOR = 4.0
 
 
-def lse_hold(gen, device, shape, errs: dict) -> None:
+def lse_hold(gen, device, shape, errs: dict, phase: str = "kernel") -> None:
     """K2's forward, dq and (k with a gradient) dk at ``shape`` against
     the plain version and its autograd; ``errs`` keeps each kernel's
-    largest abs error."""
+    largest abs error; the line printed under ``phase``."""
     from chaorec_tpu_torch.ops.streaming_lse import (streaming_logsumexp,
                                                      streaming_logsumexp_reference)
 
@@ -5637,7 +5691,7 @@ def lse_hold(gen, device, shape, errs: dict) -> None:
         err = (a - w).abs().max().item()
         errs[name] = max(errs[name], err)
         rels.append(err / w.abs().max().item())
-    say("kernel", f"streaming_logsumexp ({b}, {n}, {e}) at temperature {temp}, k "
+    say(phase, f"streaming_logsumexp ({b}, {n}, {e}) at temperature {temp}, k "
         f"{'with' if k_grad else 'without'} gradient: launches fwd/dq/dk {launched}; "
         f"fwd max abs err {(got - want).abs().max().item():.3e} ({fwd_share:.3f} of rtol/atol "
         f"1e-5); dq{', dk' if k_grad else ''} max abs err / max |plain| "
@@ -6026,11 +6080,564 @@ def mesh_phases(args, device, fds, children: MeshRuns) -> tuple:
     return time.perf_counter() - t_start, k1, k2, launches
 
 
+# Phases 73-79: the large catalogs, where the size gates that both packages
+# share pick other branches than at baby, sports and beauty: microlens
+# (46420 x 14079 = 653.5 M cells, above dense_prop_threshold's 600 M: the
+# segment graph and no combined operator; GUME's bf16 budget of 8e8 keeps its
+# dense bf16 R) and electronics (150179 x 51901: the user co-occurrence's
+# sparse path above 1.5 B cells, BSPM's randomized SVD above 20000 items, a
+# ranking pass over 150179 users). Synthetic sets of their exact shapes,
+# each model at its Model_YAML file's first combo.
+MICROLENS, ELECTRONICS = "microlens", "electronics"
+CATALOG_LENS = (5, 14)  # train items a user, synthetic_dataset's default
+CATALOG_CHUNK = 4096  # users a Gumbel top-k draw takes at once on the card
+CATALOG_EPOCHS = {("LightGCN", MICROLENS): 2, ("SGL", MICROLENS): 1, ("GUME", MICROLENS): 1,
+                  ("LightGCN", ELECTRONICS): 1, ("DualGNN", ELECTRONICS): 1}
+# BSPM's electronics run keeps this many users: its dense fp32 R (U, I) and
+# C = R^T R would be 31.2 GB and 0.8 PFLOP at all 150179; the items, whose
+# count picks the branch, are all kept
+BSPM_USERS = 30000
+CATALOG_CHILD_TIMEOUT_S = 1000  # phases 73-78's child, from its start before phase 34
+SGL_TAU = 0.1  # SGL's first combo's ssl_temp: K2's temperature at both catalogs' shapes
+
+
+def catalog_dataset(name: str, seed: int, device, features: bool = False, shape=None):
+    """``name``'s shape (or ``shape``, (users, items)) with
+    ``synthetic_dataset``'s item weighting (w ~ 1 / (rank + 10), permuted)
+    and CATALOG_LENS train items a user, drawn as a Gumbel top-k a chunk of
+    users on ``device``: the first n of a row's largest log w + Gumbel keys
+    are n items drawn without replacement with probabilities ~ w, the law of
+    ``rng.choice(p=w, replace=False)`` without its pass over every item for
+    each user; one val and one test item each, uniform over the items the
+    user has not seen; with ``features``, the loader's synthetic image and
+    text features (``data/loading.synthetic_item_features``)."""
+    from chaorec_tpu_torch.data.loading import (DATASET_STATS, T_FEAT_DIM, T_FEAT_SEED,
+                                                V_FEAT_DIM, V_FEAT_SEED, PaddedLists, RecDataset,
+                                                synthetic_item_features)
+
+    num_user, num_item = shape or DATASET_STATS[name]
+    rng = np.random.default_rng(seed)
+    w = 1.0 / (np.arange(num_item) + 10.0)
+    w = w[rng.permutation(num_item)]
+    lens = rng.integers(*CATALOG_LENS, num_user)
+    width = int(lens.max())
+    log_w = torch.from_numpy(np.log(w)).to(device, torch.float32)
+    gen = torch.Generator(device).manual_seed(seed)
+    picks = []
+    for start in range(0, num_user, CATALOG_CHUNK):
+        u = torch.rand((min(CATALOG_CHUNK, num_user - start), num_item), generator=gen,
+                       device=device)
+        picks.append(torch.topk(log_w - torch.log(-torch.log(u)), width, dim=1).indices.cpu())
+    picks = torch.cat(picks).numpy().astype(np.int32)
+    kept = np.arange(width)[None, :] < lens[:, None]
+    edges = np.stack([np.repeat(np.arange(num_user, dtype=np.int32), lens), picks[kept]], 1)
+    hist = np.sort(np.where(kept, picks, num_item), axis=1).astype(np.int32)
+    held = unseen_pairs(rng, hist, num_item).astype(np.int32)
+    users, ones = np.arange(num_user, dtype=np.int32), np.ones(num_user, np.int32)
+    feats = {}
+    if features:
+        feats = dict(
+            v_feat=synthetic_item_features(edges, num_user, num_item, V_FEAT_DIM, V_FEAT_SEED),
+            t_feat=synthetic_item_features(edges, num_user, num_item, T_FEAT_DIM, T_FEAT_SEED))
+    return RecDataset(
+        name=name, num_user=num_user, num_item=num_item, train_edges=edges,
+        history=PaddedLists(hist, lens.astype(np.int32), num_item),
+        val_users=users, val_pos=PaddedLists(held[:, :1].copy(), ones, -1),
+        test_users=users, test_pos=PaddedLists(held[:, 1:].copy(), ones, -1), **feats)
+
+
+def unseen_pairs(rng, hist: np.ndarray, num_item: int, cands: int = 8) -> np.ndarray:
+    """(U, 2): two distinct items a user, each uniform over the items not in
+    its row of ``hist`` (U, H) (rejection from ``cands`` uniform draws a
+    row; a row left with fewer than two draws again)."""
+    out = np.empty((hist.shape[0], 2), np.int64)
+    todo = np.arange(hist.shape[0])
+    while todo.size:
+        cand = rng.integers(num_item, size=(todo.size, cands))
+        bad = (cand[:, :, None] == hist[todo][:, None, :]).any(2)
+        bad |= np.triu(cand[:, :, None] == cand[:, None, :], 1).any(1)  # an earlier draw's twin
+        ok = ~bad
+        enough = ok.sum(1) >= 2
+        first = np.argsort(bad, axis=1, kind="stable")[:, :2]
+        out[todo[enough]] = np.take_along_axis(cand, first, 1)[enough]
+        todo = todo[~enough]
+    return out
+
+
+def first_users(ds, n: int):
+    """``ds`` cut to its first ``n`` users: their edges, histories and held
+    items; every item kept."""
+    from chaorec_tpu_torch.data.loading import PaddedLists
+
+    def rows(p):
+        return PaddedLists(p.values[:n], p.lengths[:n], p.fill)
+
+    keep = ds.train_edges[:, 0] < n
+    return dataclasses.replace(
+        ds, num_user=n, train_edges=ds.train_edges[keep], history=rows(ds.history),
+        val_users=ds.val_users[:n], val_pos=rows(ds.val_pos), test_users=ds.test_users[:n],
+        test_pos=rows(ds.test_pos))
+
+
+def catalog_set(args, name: str, device, features: bool = False):
+    """``name``'s set: ``--data_root``'s, or ``catalog_dataset``'s; its
+    seconds printed."""
+    from chaorec_tpu_torch.data.loading import data_load
+
+    t0 = time.perf_counter()
+    ds = (data_load(name, args.data_root, has_v=features, has_t=features) if args.data_root
+          else catalog_dataset(name, args.seed, device, features))
+    say("catalog", f"{'data_load' if args.data_root else 'synthetic'} {name} ({ds.num_user}, "
+        f"{ds.num_item}) = {ds.num_user * ds.num_item / 1e6:.1f} M cells, {ds.num_edges} train "
+        f"edges{', 4096- and 384-wide features' if features else ''}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return ds
+
+
+class RankProbe:
+    """While active, times each ranking pass of the trainer's evaluation
+    (``train/loop.sharded_rank``, the device synchronized at both ends) with
+    its peak device memory above what was allocated before it (the peak
+    before it, the training's, is kept in ``before``), and records the
+    shape of every score block ``eval/ranking.mask_and_topk`` masks."""
+
+    def __enter__(self):
+        from chaorec_tpu_torch.eval import ranking
+        from chaorec_tpu_torch.train import loop
+
+        self.ranking, self.loop = ranking, loop
+        rank, mask = self.orig = loop.sharded_rank, ranking.mask_and_topk
+        self.passes, self.blocks = [], set()
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            before, base = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = rank(*a, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            self.passes.append(dict(seconds=time.perf_counter() - t0, before_gib=before / 2 ** 30,
+                                    peak_gib=(peak - base) / 2 ** 30, abs_gib=peak / 2 ** 30))
+            return out
+
+        def seen(scores, *a, **kw):
+            self.blocks.add(tuple(scores.shape))
+            return mask(scores, *a, **kw)
+
+        loop.sharded_rank, ranking.mask_and_topk = timed, seen
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.sharded_rank, self.ranking.mask_and_topk = self.orig
+
+    def run_peak_gib(self) -> float:
+        """The peak device memory of the training epochs and ranking passes."""
+        return max(max(p["before_gib"], p["abs_gib"]) for p in self.passes)
+
+    def report(self, phase: str, ds, chunk: int) -> None:
+        """Prints each pass and checks that no score block was wider than
+        ``chunk`` users by the catalog: no (U, I) tensor."""
+        cells = ds.num_user * ds.num_item
+        for i, p in enumerate(self.passes):
+            say(phase, f"ranking pass {i + 1} over {ds.num_user} users x {ds.num_item} items: "
+                f"{p['seconds']:.3f} s ({ds.num_user / p['seconds']:.0f} users/s), peak "
+                f"{p['peak_gib']:.3f} GiB above what was allocated before it (the training's "
+                f"peak before it {p['before_gib']:.2f} GiB; a whole (U, I) fp32 score table "
+                f"would be {cells * 4 / 2 ** 30:.1f} GiB); score blocks masked "
+                f"{sorted(self.blocks)}")
+        check(self.passes and all(b[0] <= chunk and b[1] == ds.num_item for b in self.blocks)
+              and all(p["peak_gib"] < cells * 4 / 2 ** 30 for p in self.passes),
+              f"ranking held more than a chunk of scores: {sorted(self.blocks)}, {self.passes}")
+
+
+class CallProbe:
+    """While active, counts and times each call of ``module.name`` (the
+    device synchronized at both ends; with ``host_peak``, the peak of what
+    tracemalloc sees numpy and scipy allocate on the host during the call,
+    above what was traced at its start)."""
+
+    def __init__(self, module, name: str, host_peak: bool = False):
+        self.module, self.name, self.host_peak = module, name, host_peak
+        self.calls = []
+
+    def __enter__(self):
+        import tracemalloc
+
+        fn = self.orig = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            if self.host_peak:
+                tracemalloc.start()
+                base = tracemalloc.get_traced_memory()[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                seconds = time.perf_counter() - t0
+                peak = 0.0
+                if self.host_peak:
+                    peak = (tracemalloc.get_traced_memory()[1] - base) / 2 ** 30
+                    tracemalloc.stop()
+            self.calls.append(dict(seconds=seconds, host_peak_gib=peak))
+            return out
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+CATALOG_GROUPS = {
+    "index_add_ and the gathers' backward (deterministic: indexing_backward_kernel, its sort)": (
+        "indexing_backward", "radix", "sort"),
+    "gathers (index_select)": ("index_select", "indexselect", "gather"),
+    "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
+    "K2 (streaming logsumexp)": ("lse_",),
+    "copies (dtype casts: bdot's fp32 copies of a bf16 graph among them)": ("copy",),
+    "elementwise": ("elementwise",),
+    "reductions": ("reduce_kernel",)}
+
+
+def catalog_step_profile(phase: str, name: str, model, ds, cfg, out_dir: str) -> tuple:
+    """One training step of ``model`` on ``ds`` under the profiler (device
+    time by kernel group, idle share) and its peak device memory. Returns
+    (wall ms, device ms)."""
+    from chaorec_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(model, ds, cfg)
+    params = trainer.init_params()
+    opt = trainer.make_optimizer(params)
+    model.pre_epoch(params, 0)
+    batch = first_batch(trainer, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    out = device_profile(phase, f"one {name} training step of {cfg.batch_size} edges at "
+                         f"{ds.name} ({ds.num_user} x {ds.num_item}; forward, backward, Adam)",
+                         lambda: trainer.train_step(params, opt, batch),
+                         os.path.join(out_dir, f"chip_smoke_{name.lower()}_{ds.name}_step.txt"),
+                         groups=CATALOG_GROUPS)
+    say(phase, f"{name} step peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB")
+    del trainer, params, opt, batch
+    return out
+
+
+def catalog_cli_run(phase: str, args, device, ds, name: str, lse_terms: int = 0,
+                    export: str = "", probes=()):
+    """``name`` at its first combo, its CATALOG_EPOCHS on ``ds``, through
+    ``linear_cli_run`` on ``ds`` (its launches checked: K2 ``lse_terms``
+    times a step, nothing else), with the ranking passes probed. Returns
+    (model, RankProbe, the run's wall seconds, its K2 launches)."""
+    from chaorec_tpu_torch.config import Config
+
+    combo, grid = first_combo(name)
+    cfg = Config(Model=name, data_path=ds.name, seed=args.seed).replace(**combo).replace(
+        num_epoch=CATALOG_EPOCHS[name, ds.name], log_dir=args.out_dir, export_artifact=export)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        ranks = stack.enter_context(RankProbe())
+        for p in probes:
+            stack.enter_context(p)
+        models, _ = linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms=lse_terms)
+    run_s = time.perf_counter() - t0
+    k2 = lse_counts()
+    model = models[0]
+    check(len(models) == 1 and model.device.type == device.type, f"{name} is not on the card")
+    ranks.report(phase, ds, cfg.eval_user_chunk)
+    return model, cfg, ranks, run_s, k2
+
+
+def catalog_summary(phase: str, number: int, name: str, ds, run_s: float, peak_gib: float,
+                    branch: str, launches) -> None:
+    say(phase, f"phase {number} {name} at {ds.name} ({ds.num_user} x {ds.num_item}): wall "
+        f"{run_s:.1f} s, peak device memory {peak_gib:.2f} GiB, branch: {branch}; kernel "
+        f"launches {launches}")
+
+
+def describe_graph(graph) -> str:
+    if graph.use_dense:
+        return (f"the dense {graph.compute_dtype} R {tuple(graph.dense_r.shape)}, "
+                f"{graph.dense_r.numel() * graph.dense_r.element_size() / 1e9:.2f} GB")
+    return (f"the segment graph ({graph.num_edges} edges by user and by item, index_add_; "
+            f"no dense R)")
+
+
+def k2_catalog_holds(phase: str, gen, device, sides: dict, errs: dict) -> dict:
+    """K2 at (1024, n, 64) for each of ``sides`` ({side: n}), SGL's
+    temperature: the forward, dq and dk against the plain version and its
+    autograd at phase 3's gates, then each kernel timed beside the plain
+    version, the library route and its bound. Returns {side: timings}."""
+    out = {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for side, n in sides.items():
+        shape = (1024, n, 64, SGL_TAU, True)
+        lse_hold(gen, device, shape, errs, phase)
+        q, k, g = lse_inputs(gen, shape, device)
+        out[side] = lse_timings(phase, side, q.detach(), k.detach(), g, True, sms)
+        del q, k, g
+        torch.cuda.empty_cache()
+    return out
+
+
+class CatalogChild:
+    """Phases 73-78 in a child process (``chip_smoke.py --catalog_child``):
+    their CLI runs at the large catalogs, started before phase 34, run
+    beside phases 34-72 (DualGNN's co-occurrence build alone is minutes of
+    one host core); ``catalog_phases`` collects it. An exit of this
+    interpreter ends it."""
+
+    def __init__(self, args):
+        self.dir = os.path.abspath(os.path.join(args.out_dir, "catalog"))
+        os.makedirs(self.dir, exist_ok=True)
+        self.result = os.path.join(self.dir, "catalog.json")
+        self.out = os.path.join(self.dir, "child.txt")
+        cmd = [sys.executable, os.path.abspath(__file__), "--catalog_child", self.result,
+               "--seed", str(args.seed), "--out_dir", self.dir]
+        if args.data_root:
+            cmd += ["--data_root", os.path.abspath(args.data_root)]
+        atexit.register(self.stop)
+        with open(self.out, "w") as fh:
+            self.t0 = time.perf_counter()
+            self.proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        self.waiter = ThreadPoolExecutor(1)
+        self.end = self.waiter.submit(lambda: (self.proc.wait(), time.perf_counter()))
+
+    def collect(self) -> dict:
+        """The child's lines (printed here) and its result, once it has
+        ended; its wall from start to end."""
+        rc, end = self.end.result(timeout=CATALOG_CHILD_TIMEOUT_S)
+        self.waiter.shutdown()
+        with open(self.out) as fh:
+            lines = fh.read().splitlines()
+        for line in lines:
+            print(line, flush=True)
+        check(rc == 0, f"phases 73-78's child exited {rc}: " + "\n".join(lines[-30:]))
+        with open(self.result) as fh:
+            return dict(json.load(fh), child_s=end - self.t0)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            kill_tree(self.proc.pid)
+            self.proc.wait()
+
+
+def microlens_phases(args, device) -> dict:
+    """Phases 73-75 on the microlens-sized set (U x I above
+    dense_prop_threshold): (73) LightGCN, 2 epochs on the segment graph with
+    no combined operator, exported and served; (74) SGL, 1 epoch there, its
+    K2 launches counted; (75) GUME, 1 epoch on its dense bf16 R (the 8e8
+    budget), its fp32 copies in bdot's backward timed; each step profiled.
+    Returns {"sgl_k2": SGL's (fwd, dq, dk) launches}."""
+    from chaorec_tpu_torch.config import Config
+
+    phase = "catalog"
+    thr = Config().dense_prop_threshold
+    mds = catalog_set(args, MICROLENS, device, features=True)  # GUME reads the features
+    # 73. LightGCN at microlens: the segment graph, no operator -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "lightgcn_microlens.npz")
+        model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, mds, "LightGCN",
+                                                      export=art)
+        peak = ranks.run_peak_gib()
+        check(mds.num_user * mds.num_item > thr and not model.graph.use_dense
+              and model.graph.dense_r is None and model.linear_op is None,
+              "LightGCN at microlens is not on the segment graph without an operator")
+        reset_counts()
+        check_embeddings_serving(phase, art, mds, device, "LightGCN")
+        catalog_step_profile(phase, "LightGCN", model, mds, cfg, args.out_dir)
+        check(not any(other_counts()), f"LightGCN's serving and step launched {other_counts()}")
+        catalog_summary(phase, 73, "LightGCN", mds, run_s, peak,
+                        f"U x I {mds.num_user * mds.num_item / 1e6:.1f} M > dense_prop_threshold "
+                        f"{thr / 1e6:.0f} M: {describe_graph(model.graph)}, no combined operator",
+                        "none (expected none)")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 74. SGL at microlens: the segment graph, K2 two terms a step ----------
+    model, cfg, ranks, run_s, sgl_k2 = catalog_cli_run(phase, args, device, mds, "SGL",
+                                                       lse_terms=2)
+    peak = ranks.run_peak_gib()
+    check(not model.graph.use_dense, "SGL at microlens is not on the segment graph")
+    reset_counts()
+    catalog_step_profile(phase, "SGL", model, mds, cfg, args.out_dir)
+    catalog_summary(phase, 74, "SGL", mds, run_s, peak, describe_graph(model.graph),
+                    f"streaming_lse fwd/dq/dk {sgl_k2} (2 terms a step, each with all three)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 75. GUME at microlens: the dense bf16 R under its 8e8 budget ----------
+    model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, mds, "GUME")
+    peak = ranks.run_peak_gib()
+    r = model.r_norm
+    check(model.graph_bf16 and r.dtype == torch.bfloat16 and tuple(r.shape) == (
+        mds.num_user, mds.num_item) and mds.num_user * mds.num_item <= model.dense_entry_budget,
+          "GUME at microlens is not on its dense bf16 R")
+    reset_counts()
+    wall_ms, busy_ms = catalog_step_profile(phase, "GUME", model, mds, cfg, args.out_dir)
+    n_r = 2 * model.n_ui_layers + 1
+    n_ii = model.n_ui_layers + 2 * model.n_layers
+    r_ms = cuda_ms(lambda: model.r_norm.float(), 5)
+    ii_ms = cuda_ms(lambda: model.ii_norm.float(), 5)
+    copies_ms = n_r * r_ms + n_ii * ii_ms
+    say(phase, f"GUME's fp32 copies of its bf16 graphs in bdot's backward: {n_r} of R "
+        f"{tuple(r.shape)} ({r.numel() * 2 / 1e9:.2f} GB in bf16) at {r_ms:.3f} ms and {n_ii} of "
+        f"an (I, I) graph at {ii_ms:.3f} ms, timed alone: {copies_ms:.2f} ms a step, "
+        f"{100 * copies_ms / busy_ms:.1f}% of its device time ({busy_ms:.1f} ms), "
+        f"{100 * copies_ms / wall_ms:.1f}% of its wall ({wall_ms:.1f} ms)")
+    check(not any(other_counts()), f"GUME's step launched {other_counts()}")
+    catalog_summary(phase, 75, "GUME", mds, run_s, peak,
+                    f"U x I {mds.num_user * mds.num_item / 1e6:.1f} M <= its bf16 budget "
+                    f"{model.dense_entry_budget / 1e6:.0f} M: the dense bf16 R "
+                    f"{tuple(r.shape)}, {r.numel() * 2 / 1e9:.2f} GB", "none (expected none)")
+    del model, r, mds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sgl_k2": list(sgl_k2)}
+
+
+def electronics_phases(args, device) -> None:
+    """Phases 76-78 on the electronics-sized set (with the loader's
+    synthetic features): (76) LightGCN, 1 epoch, every user ranked a chunk
+    at a time, exported and served; (77) DualGNN, 1 epoch, its user
+    co-occurrence graph on the sparse path (timed, with the host's peak);
+    (78) BSPM on the set's first BSPM_USERS users, its randomized SVD, one
+    scoring pass; the trained models' steps profiled."""
+    from chaorec_tpu_torch.config import Config
+    from chaorec_tpu_torch.graphs import user_graph
+    from chaorec_tpu_torch.models import bspm
+
+    phase = "catalog"
+    eds = catalog_set(args, ELECTRONICS, device, features=True)
+    # 76. LightGCN at electronics: every user ranked a chunk at a time ------
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "lightgcn_electronics.npz")
+        model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, eds, "LightGCN",
+                                                      export=art)
+        peak = ranks.run_peak_gib()
+        check(not model.graph.use_dense and model.linear_op is None,
+              "LightGCN at electronics is not on the segment graph without an operator")
+        reset_counts()
+        check_embeddings_serving(phase, art, eds, device, "LightGCN")
+        catalog_step_profile(phase, "LightGCN", model, eds, cfg, args.out_dir)
+        check(not any(other_counts()), f"LightGCN's serving and step launched {other_counts()}")
+        catalog_summary(phase, 76, "LightGCN", eds, run_s, peak,
+                        f"{describe_graph(model.graph)}, no combined operator; ranking "
+                        f"{cfg.eval_user_chunk} users a block", "none (expected none)")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 77. DualGNN at electronics: the co-occurrence graph's sparse path -----
+    dense_cells = inspect.signature(user_graph.build_user_cooccurrence).parameters[
+        "dense_threshold"].default
+    sparse = CallProbe(user_graph, "_build_user_cooccurrence_sparse", host_peak=True)
+    with UserGraphProbe() as uu:
+        model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, eds, "DualGNN",
+                                                      probes=(sparse,))
+    peak = ranks.run_peak_gib()
+    build = uu.builds[0]
+    check(len(sparse.calls) == 1 and eds.num_user * eds.num_item > dense_cells,
+          f"DualGNN's co-occurrence took the sparse path {len(sparse.calls)} times")
+    idx, cnt, lengths = model._uu
+    say(phase, f"DualGNN's user co-occurrence graph: U x I = {eds.num_user * eds.num_item / 1e9:.2f}"
+        f" B cells > the dense threshold {dense_cells / 1e9:.1f} B: the sparse path (scipy, "
+        f"A A^T a 4096-user chunk at a time, each row ordered by (-count, id)) "
+        f"{sparse.calls[0]['seconds']:.1f} s of host, host peak "
+        f"{sparse.calls[0]['host_peak_gib']:.2f} GiB above its start (tracemalloc), the build "
+        f"{build['seconds']:.1f} s in all; {idx.shape[1]} neighbours kept, {int(lengths.sum())} "
+        f"in all; topk_sample (numpy, user by user) on the host "
+        + ", ".join(f"{s:.3f}" for s in uu.samples) + " s (construction, then each epoch's "
+        "pre_epoch)")
+    check(bool(np.isfinite(cnt).all()) and int(lengths.max()) <= idx.shape[1]
+          and bool((cnt[:, :-1] >= cnt[:, 1:]).all()), "DualGNN's co-occurrence graph is malformed")
+    reset_counts()
+    catalog_step_profile(phase, "DualGNN", model, eds, cfg, args.out_dir)
+    check(not any(other_counts()), f"DualGNN's step launched {other_counts()}")
+    catalog_summary(phase, 77, "DualGNN", eds, run_s, peak,
+                    f"{describe_graph(model.graph)}; the sparse co-occurrence path",
+                    "none (expected none)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 78. BSPM at electronics' items: the randomized SVD --------------------
+    cut = first_users(eds, min(BSPM_USERS, eds.num_user))
+    combo, grid = first_combo("BSPM")
+    bspm._SPECTRAL_CACHE.clear()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, CallProbe(bspm, "randomized_svd") as rsvd:
+        cfg = Config(Model="BSPM", data_path=ELECTRONICS, seed=args.seed).replace(
+            **combo).replace(log_dir=args.out_dir, export_artifact=os.path.join(tmp, "bspm.npz"))
+        model, k2 = family_cli_run(device, cut, "BSPM", cfg, grid)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(cut.num_item > bspm.EIGSH_MAX_ITEMS and len(rsvd.calls) == 1
+          and tuple(model.b.shape) == (cut.num_item, model.factor_dim),
+          f"BSPM at {cut.num_item} items took another branch ({len(rsvd.calls)} SVDs)")
+    say(phase, f"BSPM on the first {cut.num_user} of {eds.num_user} users (all {cut.num_item} "
+        f"items, {cut.num_edges} edges): R {cut.num_user * cut.num_item * 4 / 1e9:.2f} GB fp32, "
+        f"C = R^T R {cut.num_item ** 2 * 4 / 1e9:.2f} GB; the randomized SVD of R "
+        f"{rsvd.calls[0]['seconds']:.3f} s of the spectral build {model.build_seconds:.3f} s")
+    catalog_summary(phase, 78, "BSPM", cut, run_s, peak,
+                    f"{cut.num_item} items > {bspm.EIGSH_MAX_ITEMS}: the randomized SVD "
+                    f"(oversample 128, 8 power iterations), B {tuple(model.b.shape)}",
+                    f"{tuple(k2)} of K2 (expected none)")
+    del model, cut, eds
+    bspm._SPECTRAL_CACHE.clear()
+
+
+def catalog_child_main(args, device) -> int:
+    """Phases 73-78, run by ``--catalog_child``: ``microlens_phases``, then
+    ``electronics_phases``. Writes the result's JSON (SGL's K2 launches) to
+    ``args.catalog_child``."""
+    result = microlens_phases(args, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    electronics_phases(args, device)
+    with open(args.catalog_child, "w") as fh:
+        json.dump(result, fh)
+    return 0
+
+
+def catalog_phases(args, device, child: CatalogChild) -> tuple:
+    """Phases 73-79: the two large catalogs. Phases 73-78 ran in ``child``
+    (each printing its wall, peak memory, branch and launches; collected
+    here, their lines printed); then K2 at SGL's two microlens shapes
+    (phase 74's kernels) and at electronics' two sides (79), held and
+    timed here. Returns (seconds, SGL's K2 launches, K2 at microlens, K2 at
+    electronics, the child's result)."""
+    from chaorec_tpu_torch.data.loading import DATASET_STATS
+
+    t_start = time.perf_counter()
+    phase = "catalog"
+    result = child.collect()
+    say(phase, f"phases 73-78's child (started before phase 34, beside phases 34-72): "
+        f"{result['child_s']:.1f} s from its start to its end")
+    gen = torch.Generator(device=device).manual_seed(args.seed + 73)
+    errs = {"fwd": 0.0, "dq": 0.0, "dk": 0.0}
+    sides = {}
+    for name in (MICROLENS, ELECTRONICS):
+        num_user, num_item = DATASET_STATS[name]
+        sides[name] = k2_catalog_holds(phase, gen, device, {"user": num_user, "item": num_item},
+                                       errs)
+    say(phase, f"K2 at the catalogs' shapes against the plain version: max abs err fwd "
+        f"{errs['fwd']:.3e}, dq {errs['dq']:.3e}, dk {errs['dk']:.3e}")
+    return (time.perf_counter() - t_start, tuple(result["sgl_k2"]),
+            dict(sides[MICROLENS], max_abs_err=errs), dict(sides[ELECTRONICS], max_abs_err=errs),
+            result)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data_root", default="")
     ap.add_argument("--out_dir", default="log")
+    ap.add_argument("--catalog_child", default="", help=argparse.SUPPRESS)  # phases 73-78
     args = ap.parse_args(argv)
     t_run = time.perf_counter()
 
@@ -6040,7 +6647,7 @@ def main(argv=None) -> int:
                          "this script needs a CUDA card")
     from chaorec_tpu_torch import cli, kernels
     from chaorec_tpu_torch.config import Config
-    from chaorec_tpu_torch.data.loading import data_load
+    from chaorec_tpu_torch.data.loading import DATASET_STATS, data_load
     from chaorec_tpu_torch.models import build_model
     from chaorec_tpu_torch.models.base import Batch
     from chaorec_tpu_torch.models.cf_diff import CF_Diff
@@ -6062,6 +6669,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     say("device", "tf32 off for matmul and cudnn")
     os.makedirs(args.out_dir, exist_ok=True)
+    if args.catalog_child:
+        return catalog_child_main(args, device)
 
     # 2. build: one nvcc per source, all at once --------------------------
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -6387,8 +6996,10 @@ def main(argv=None) -> int:
     bds = linear_dataset(args)
     linear_s = time.perf_counter() - t0 + linear_gcn_phases(args, device, bds)
     t0 = time.perf_counter()
-    # phases 70-72's CLI children run beside phases 34-69 (collected at 70)
+    # phases 70-72's CLI children run beside phases 34-69 (collected at 70),
+    # phases 73-78's child beside phases 34-72 (collected after 72)
     mesh_children = MeshRuns(args, fds)
+    catalog_child = CatalogChild(args)
     det = determinism_phase(args, device, {DATASET: ds, FREEDOM_DATASET: fds,
                                            LINEAR_DATASET: bds})
     say("determinism", f"{len(DET_MODELS)} models twice on one seed: equal loss bits and rank "
@@ -6447,12 +7058,14 @@ def main(argv=None) -> int:
     mesh_s, k1_mesh, k2_mesh, mesh_launches = mesh_phases(args, device, fds, mesh_children)
     mesh_children.stop()
     say("mesh", f"phases 70-72's share of the run: {mesh_s:.1f} s")
+    catalog_s, sgl_micro_k2, k2_micro, k2_elec, _ = catalog_phases(args, device, catalog_child)
+    say("catalog", f"phases 73-79's share of the run: {catalog_s:.1f} s")
     say("result", f"the whole run to here: {time.perf_counter() - t_run:.1f} s")
 
     # result -----------------------------------------------------------
     # One entry per path and shape; each path's launches are its own run's
     # (the CF_Diff export of phase 4, the CLI runs of phases 7, 10, 14, 21,
-    # 24, 27, 39, 43, 58, 62 and 63, the bf16 epoch of phase 13).
+    # 24, 27, 39, 43, 58, 62, 63 and 74, the bf16 epoch of phase 13).
     fwd = dict(route="cuda", source="chaorec_tpu_torch/csrc/fused_mha.cu",
                replaces="chaorec_tpu/ops/pallas_attn.py:65")
     no_library = "no PyTorch call draws this Philox dropout mask"
@@ -6640,6 +7253,25 @@ def main(argv=None) -> int:
                         "ranks' summed, both sides (q: a rank's half of the batch's rows); "
                         "library: torch.mm and torch.logsumexp"
                         f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
+    # the large catalogs (phases 74 and 79): K2 at SGL's two microlens shapes,
+    # launched by phase 74's run, and at electronics' two sides, held alone
+    for cat, k2, launches, note in (
+            (MICROLENS, k2_micro, sgl_micro_k2,
+             "launches: phase 74's SGL CLI run at microlens, both sides (2 terms a step)"),
+            (ELECTRONICS, k2_elec, (0, 0, 0),
+             "launches: none on a CLI run of this script (phase 79 holds and times K2 at "
+             "electronics' two sides alone; no run here trains a K2 model at electronics)")):
+        for side, n in zip(("user", "item"), DATASET_STATS[cat]):
+            for i, (kernel, line) in enumerate((("fwd", 44), ("dq", 95), ("dk", 116))):
+                entries.append({
+                    "name": f"streaming_lse_{kernel}@{cat}[{side}]", "route": "cuda",
+                    "source": "chaorec_tpu_torch/csrc/streaming_lse.cu",
+                    "replaces": f"chaorec_tpu/ops/pallas_lse.py:{line}", "shape": [1024, n, 64],
+                    "temperature": SGL_TAU, "launches": launches[i],
+                    "max_abs_err": k2["max_abs_err"][kernel], **k2[side][kernel],
+                    "note": f"{note}; q: 1024 unit rows over the temperature, k: n unit rows; "
+                            "library: torch.mm and torch.logsumexp"
+                            f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

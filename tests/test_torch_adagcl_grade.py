@@ -51,6 +51,7 @@ from test_torch_bspm import both_clis_export
 from test_torch_lightgcn import (TOL, assert_grads_close, both_batches, jax_batches,
                                  make_pair)
 from test_torch_vae import t
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BASE = dict(batch_size=100, dim_E=16, graph_compute_dtype="float32", topk=(5, 10, 20))
 ADAGCL_F = dict(BASE, Model="AdaGCL", n_layers=1, learning_rate=0.001, reg_weight=0.1,

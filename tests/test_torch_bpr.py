@@ -27,6 +27,7 @@ from chaorec_tpu_torch.eval import ranking as tranking
 from chaorec_tpu_torch.models.base import Batch, RecModel
 from chaorec_tpu_torch.ops import losses as tlosses
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LOSS_TOL = dict(rtol=1e-6, atol=1e-7)
 

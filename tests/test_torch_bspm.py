@@ -28,6 +28,7 @@ from chaorec_tpu_torch.config import grid_combinations, load_yaml_config
 from chaorec_tpu_torch.models import bspm as tbspm
 from chaorec_tpu_torch.models import build_model as tbuild
 from test_torch_vae import NUMBER
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIRST = dict(Model="BSPM", K_s=1, T_s=1.0, K_b=1, T_b=1.0, idl_beta=1.0, topk=(5, 10, 20))
 COMBOS = {"first": FIRST, "k2": dict(FIRST, K_s=2, T_s=1.5, idl_beta=0.7),

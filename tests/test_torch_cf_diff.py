@@ -26,6 +26,7 @@ from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models import cf_diff as tcf
 from chaorec_tpu_torch.models.base import Batch
 from chaorec_tpu_torch.ops import diffusion as tdiff
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # Model_YAML/CF_Diff.yaml, first combo
 CFG = dict(Model="CF_Diff", steps=10, noise_scale=0.1, noise_min=5e-4, noise_max=5e-3)

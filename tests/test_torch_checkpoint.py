@@ -37,21 +37,11 @@ from test_torch_mhrec import FLAGS as MHREC
 from test_torch_mmssl import FLAGS as MMSSL
 from test_torch_rebuild_gated import FLAGS as REBUILD_GATED
 from test_torch_train import LEARN as CF_DIFF
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SEED = 42
 SCHEMA = "does not match the current optimizer/state schema"
 Pair = namedtuple("Pair", "a b")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's side runs on one CPU thread: its tensors are tiny, and the
-    pytest-xdist workers' thread pools would otherwise contend for the cores
-    (CF_Diff's resume case, 1.4 s alone, took 205 s so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(fill=None):

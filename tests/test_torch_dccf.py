@@ -31,6 +31,7 @@ from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models import dccf as tdccf
 from chaorec_tpu_torch.models.base import Batch as TBatch
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CFG = dict(Model="DCCF", batch_size=100, dim_E=16, learning_rate=1e-3, reg_weight=1e-3,
            n_layers=1, n_intents=8, ssl_temp=1.0, ssl_alpha=0.1, cen_reg=1e-3,

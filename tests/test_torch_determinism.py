@@ -58,13 +58,6 @@ CONFIGS = {"CF_Diff": CF_DIFF, "FREEDOM": FREEDOM, "SGL": SGL, "NCL": NCL, "DGCF
            **MM_TOWERS3, **MM_TOWERS4, **REBUILD_GATED, "MMSSL": MMSSL, "DiffMM": DIFFMM,
            "MHRec": MHREC}
 SEED = 42
-# The id-only models' and the user-graph towers' and LightGT's CPU cases run
-# on one torch thread, as their own port tests do
-# (test_torch_vae.one_torch_thread): LightGT's many small operations
-# otherwise contend with the other workers' thread pools (233 s for a case
-# of 1 s alone); the others keep the default pool.
-ONE_THREAD = (*VAES, "DiffRec", "DHCF", "LightGODE", "SelfCF", "FKAN_GCF", "MCLN",
-              *MM_TOWERS4)
 
 
 def _run(ds, name, device, seed=SEED, epochs=2):
@@ -99,10 +92,13 @@ CASES = [pytest.param(name, "cpu", id=f"{name}-cpu") for name in CONFIGS] + [
 
 
 @pytest.fixture
-def threads(name, device):
-    """One torch thread for the CPU cases of ONE_THREAD's models."""
+def threads(device):
+    """One torch thread for the CPU cases, as the port's own tests run
+    (torch_threads.one_torch_thread): on the default pool the xdist
+    workers' threads contend for the cores (GraphAug's and Grade's cases,
+    10 s together on one thread, took 100 s so beside another test run)."""
     n = torch.get_num_threads()
-    if device == "cpu" and name in ONE_THREAD:
+    if device == "cpu":
         torch.set_num_threads(1)
     yield torch.get_num_threads()
     torch.set_num_threads(n)

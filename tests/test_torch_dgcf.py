@@ -46,6 +46,7 @@ from chaorec_tpu_torch.models.dgcf import DGCF
 from chaorec_tpu_torch.ops import distcorr as tdistcorr
 from chaorec_tpu_torch.serve import export_artifact
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CFG = dict(Model="DGCF", batch_size=100, dim_E=16, learning_rate=0.01, reg_weight=0.01,
            corDecay=0.01, n_factors=2, n_iterations=1, n_layers=3, topk=(5, 10, 20))

@@ -13,6 +13,7 @@ import torch
 
 from chaorec_tpu.ops import diffusion as jdiff
 from chaorec_tpu_torch.ops import diffusion as tdiff
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SCHEDULES = [  # (noise_scale, noise_min, noise_max, steps)
     (0.1, 5e-4, 5e-3, 10),  # Model_YAML/CF_Diff.yaml

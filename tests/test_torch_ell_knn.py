@@ -26,6 +26,7 @@ import torch
 from chaorec_tpu.ops import ell as jell
 from chaorec_tpu_torch.graphs import knn as tknn
 from chaorec_tpu_torch.ops import ell as tell
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -32,6 +32,7 @@ from chaorec_tpu_torch.config import Config as TConfig
 from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models.base import Batch as TBatch
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # tests/test_models_e2e.py's FREEDOM settings
 CFG = dict(Model="FREEDOM", batch_size=64, dim_E=16, feature_embed=16, learning_rate=0.05,

@@ -31,6 +31,7 @@ from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models import gformer as tgf
 from test_torch_bspm import both_clis_export
 from test_torch_lightgcn import assert_grads_close, both_batches, jax_batches
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIRST = dict(Model="GFormer", batch_size=100, dim_E=16, learning_rate=0.001, reg_weight=1e-4,
              n_layers=1, pnn_layer=1, ssl_alpha=1.0, b2=1.0, ctra=0.01, topk=(5, 10, 20))

@@ -21,6 +21,7 @@ from chaorec_tpu.graphs import norm_adj as jnorm
 from chaorec_tpu_torch.graphs import dropout as tdropout
 from chaorec_tpu_torch.graphs import knn as tknn
 from chaorec_tpu_torch.graphs import norm_adj as tnorm
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PROP_TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "bfloat16": dict(rtol=1e-4, atol=1e-5)}
 

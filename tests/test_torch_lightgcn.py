@@ -38,6 +38,7 @@ from chaorec_tpu_torch.models.bpr import BPRMF
 from chaorec_tpu_torch.models.lightgcn import LightGCN
 from chaorec_tpu_torch.ops.linear_prop import CombinedLinearOp
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LIGHTGCN = dict(Model="LightGCN", batch_size=100, dim_E=16, learning_rate=0.01,
                 reg_weight=1e-3, n_layers=2, graph_compute_dtype="float32", topk=(5, 10, 20))

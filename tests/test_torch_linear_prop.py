@@ -26,6 +26,7 @@ from chaorec_tpu_torch.graphs.norm_adj import build_norm_adj
 from chaorec_tpu_torch.models.lightgcn import LightGCN
 from chaorec_tpu_torch.models.simgcl import SimGCL
 from chaorec_tpu_torch.ops import linear_prop as tlp
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 BLOCKS = ("m_uu", "m_ui", "m_iu", "m_ii")

@@ -40,7 +40,7 @@ from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.parallel import mesh as tmesh
 from chaorec_tpu_torch.train import loop as tloop
 from test_torch_determinism import CONFIGS
-from test_torch_vae import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 # the models that declare dp_split (held to that list by test_shard_rule_matches_jax)

@@ -19,7 +19,7 @@ from test_torch_diffmm import FLAGS as DIFFMM
 from test_torch_freedom import CFG as FREEDOM
 from test_torch_gformer import FIRST as GFORMER
 from test_torch_mhrec import FLAGS as MHREC
-from test_torch_vae import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FAMILIES = {"DiffMM": DIFFMM, "Grade": FAMILY2["Grade"], "MHRec": MHREC, "GFormer": GFORMER}
 SEED = dict(seed=5)

@@ -30,6 +30,7 @@ from test_torch_freedom import jax_prune_mask
 from test_torch_ncl import CFG as NCL
 from test_torch_ncl import jax_prototypes
 from test_torch_rebuild_gated import LATTICE_F
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LOSS_RTOL = 1e-4
 PARAM_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -29,6 +29,7 @@ from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models.base import Batch as TBatch
 from chaorec_tpu_torch.models.mgat import MGAT
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CFG = dict(Model="MGAT", batch_size=100, dim_E=16, learning_rate=0.1, reg_weight=0.1,
            graph_compute_dtype="float32", topk=(5, 10, 20))

@@ -34,6 +34,7 @@ from chaorec_tpu_torch.serve import Recommender
 from chaorec_tpu_torch.train import loop as tloop
 from test_torch_lightgcn import TOL, assert_grads_close, both_batches, jax_batches, make_pair
 from test_torch_vae import cli_logs_match, t
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BASE = dict(batch_size=100, dim_E=16, graph_compute_dtype="float32", topk=(5, 10, 20))
 FLAGS = {

@@ -30,6 +30,7 @@ from chaorec_tpu_torch.models import ncl as tncl
 from chaorec_tpu_torch.models.base import Batch as TBatch
 from chaorec_tpu_torch.ops import kmeans as tkmeans
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CFG = dict(Model="NCL", batch_size=64, dim_E=16, learning_rate=1e-3, reg_weight=1e-5,
            n_layers=2, ssl_temp=0.1, ssl_alpha=1e-2, graph_compute_dtype="float32",

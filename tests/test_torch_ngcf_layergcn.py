@@ -25,6 +25,7 @@ from chaorec_tpu_torch.models.layergcn import LayerGCN
 from chaorec_tpu_torch.models.ngcf import NGCF
 from test_torch_lightgcn import (assert_grads_close, both_batches, jax_batches, make_pair,
                                  three_steps_match)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 NGCF_FLAGS = dict(Model="NGCF", batch_size=100, dim_E=16, learning_rate=0.01, reg_weight=1e-3,
                   n_layers=3, dropout=0.2, graph_compute_dtype="float32", topk=(5, 10, 20))

@@ -18,6 +18,7 @@ from chaorec_tpu.ops import ode as jode
 from chaorec_tpu.ops import svd as jsvd
 from chaorec_tpu_torch.ops import ode as tode
 from chaorec_tpu_torch.ops import svd as tsvd
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("steps,t1", [(1, 1.0), (3, 1.5), (7, 2.5)])

@@ -34,6 +34,7 @@ from chaorec_tpu_torch.data.sampling import pack_batches
 from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models.base import Batch as TBatch
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LOSS_RTOL = 1e-5
 S_TOL = dict(rtol=0, atol=1e-5)

@@ -27,6 +27,7 @@ from chaorec_tpu_torch import serve as tserve
 from chaorec_tpu_torch.config import Config as TConfig
 from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models import cf_diff as tcf
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 GAP = 1e-5
 

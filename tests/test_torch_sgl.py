@@ -34,6 +34,7 @@ from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models.base import Batch as TBatch
 from chaorec_tpu_torch.models.sgl import SGL
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CFG = dict(Model="SGL", batch_size=64, dim_E=16, learning_rate=0.05, reg_weight=1e-3,
            n_layers=2, ssl_temp=0.2, ssl_alpha=1e-3, graph_compute_dtype="float32",

@@ -26,6 +26,7 @@ from chaorec_tpu_torch.models.xsimgcl import XSimGCL
 from chaorec_tpu_torch.ops import losses as tlosses
 from test_torch_lightgcn import (assert_grads_close, both_batches, jax_batches, make_pair,
                                  three_steps_match)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SIMGCL = dict(Model="SimGCL", batch_size=100, dim_E=16, learning_rate=0.01, reg_weight=1e-4,
               n_layers=3, ssl_temp=0.2, ssl_alpha=0.01, graph_compute_dtype="float32",

@@ -30,6 +30,7 @@ from chaorec_tpu_torch.eval import ranking as tranking
 from chaorec_tpu_torch.models import build_model as tbuild
 from chaorec_tpu_torch.models import cf_diff as tcf
 from chaorec_tpu_torch.train import loop as tloop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # the e2e learn test's CF_Diff settings (tests/test_models_e2e.py)
 LEARN = dict(Model="CF_Diff", batch_size=64, learning_rate=0.001, noise_scale=0.001,

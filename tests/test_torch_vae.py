@@ -43,6 +43,7 @@ from chaorec_tpu_torch.models.macridvae import MacridVAE
 from chaorec_tpu_torch.models.multvae import MultVAE
 from chaorec_tpu_torch.train import loop as tloop
 from test_torch_lightgcn import assert_grads_close, both_batches, jax_batches, make_pair
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BASE = dict(batch_size=100, dim_E=16, topk=(5, 10, 20))
 MULTVAE = dict(BASE, Model="MultVAE", learning_rate=0.01, reg_weight=0.01)
@@ -51,17 +52,6 @@ DUALVAE = dict(BASE, Model="DualVAE", learning_rate=0.001, reg_weight=0.5, ssl_a
 FLAGS = {"MultVAE": MULTVAE, "MacridVAE": MACRIDVAE, "DualVAE": DUALVAE}
 TOL = dict(rtol=1e-5, atol=1e-6)
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's side runs on one CPU thread in these tests: its tensors
-    are tiny, and the pytest-xdist workers' thread pools would otherwise
-    contend for the cores (a test that takes 2 s alone took 80 s so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x):
