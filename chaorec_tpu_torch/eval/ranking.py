@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from chaorec_tpu_torch import tracing
 from chaorec_tpu_torch.ops.mxu import bdot
 
 
@@ -42,8 +43,9 @@ def mask_and_topk(scores: torch.Tensor, hist: torch.Tensor, topk: int, num_user:
                   mask_value: float = 1e-6) -> torch.Tensor:
     """(n, topk) int64 global item ids of the best unseen items per row of
     ``scores`` (n, I); ``hist`` (n, H) holds 0-based seen items padded with I."""
-    _, idx = torch.topk(mask_rows(scores, hist, mask_value), topk, dim=1)
-    return idx + num_user
+    with tracing.span("eval.select"):
+        _, idx = torch.topk(mask_rows(scores, hist, mask_value), topk, dim=1)
+        return idx + num_user
 
 
 def scorer(model, params, state=None):
@@ -71,7 +73,10 @@ def rank_from_scores(model, params, history: torch.Tensor, topk: int = 50,
     outs = []
     for start in range(0, n, user_chunk):
         ids = users[start:start + user_chunk]
-        scores = score_fn(ids)
+        tracing.count("eval.chunks")
+        tracing.count("eval.users", ids.shape[0])
+        with tracing.span("eval.score"):
+            scores = score_fn(ids)
         outs.append(mask_and_topk(scores, history[ids], topk, model.num_user,
                                   float(model.mask_value)))
     return torch.cat(outs)
@@ -89,6 +94,9 @@ def gene_ranklist(user_emb: torch.Tensor, item_emb: torch.Tensor, history: torch
     outs = []
     for start in range(0, user_emb.shape[0], user_chunk):
         end = min(start + user_chunk, user_emb.shape[0])
-        scores = bdot(user_emb[start:end].to(torch.bfloat16), items_t)
+        tracing.count("eval.chunks")
+        tracing.count("eval.users", end - start)
+        with tracing.span("eval.score"):
+            scores = bdot(user_emb[start:end].to(torch.bfloat16), items_t)
         outs.append(mask_and_topk(scores, history[start:end], topk, num_user, 1e-6))
     return torch.cat(outs)

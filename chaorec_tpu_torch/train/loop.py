@@ -77,7 +77,13 @@ one. A checkpoint resumes on the device kind that wrote it (the CPU's and
 the card's generator states differ in shape). ``--profile_dir``: a
 ``torch.profiler`` trace of epoch ``start_epoch + 1`` (its ``pre_epoch``,
 training and evaluation, the JAX trainer's window), written as Chrome-trace
-JSON; on the card it must hold device kernels.
+JSON; on the card it must hold device kernels. The profiler turns on the
+spans of ``tracing.py`` (``train.batches``, ``train.step``, ``train.sample``,
+``train.forward``, ``train.backward``, ``train.optimizer``, ``train.sync``,
+``eval.embeddings``, ``eval.rank``, ``eval.score``, ``eval.select``,
+``eval.metrics``), ranges of the trace, and its counters; the epoch's
+spans, a line each with calls, host ms, host self ms and device ms, and
+then the counters are logged when the trace is written.
 
 Under ``--mesh_shape dp=..,mp=..`` (``parallel/mesh.py``, in a world the
 CLI spawns or torchrun starts) ``run`` keeps the params in a
@@ -115,6 +121,7 @@ from typing import Dict, Optional
 
 import torch
 
+from chaorec_tpu_torch import tracing
 from chaorec_tpu_torch.config import Config
 from chaorec_tpu_torch.data.loading import RecDataset
 from chaorec_tpu_torch.data.sampling import (make_edge_batches, make_epoch_batches,
@@ -342,47 +349,54 @@ class Trainer:
         share = None
         if self.dp_split:
             batch, share = shard_batch(batch, self.mesh)
+        tracing.count("train.steps")
         optimizer.zero_grad(set_to_none=True)
         names = self.model.table_params
         if not names:
-            if self.model.stateful:
-                loss, self.model_state = self.model.loss_stateful(
-                    params, self.model_state, batch, self.generator)
-            else:
-                loss = self.model.loss(params, batch, self.generator)
+            with tracing.span("train.forward"):
+                if self.model.stateful:
+                    loss, self.model_state = self.model.loss_stateful(
+                        params, self.model_state, batch, self.generator)
+                else:
+                    loss = self.model.loss(params, batch, self.generator)
+                if share is not None:
+                    loss = loss * share
+            with tracing.span("train.backward"):
+                if self.model.epoch0_params:
+                    # off batch 0 the gated params get a zero gradient, not none
+                    grads_into(loss, store.shards.values())
+                else:
+                    loss.backward()
+            with tracing.span("train.optimizer"):
+                if share is not None:
+                    store.reduce_grads()
+                optimizer.step()
+                store.full()
+            return loss
+        with tracing.span("train.forward"):
+            dense = {k: v for k, v in params.items() if k not in names}
+            rows = self.model.table_rows(batch)
+            gathered = {n: store.table_rows(n, rows[n]).requires_grad_() for n in names}
+            loss = self.model.loss_tables(dense, gathered, batch, self.generator)
             if share is not None:
                 loss = loss * share
-            if self.model.epoch0_params:
-                # off batch 0 the gated params get a zero gradient, not none
-                grads_into(loss, store.shards.values())
-            else:
-                loss.backward()
+        with tracing.span("train.backward"):
+            loss.backward()
+        with tracing.span("train.optimizer"):
             if share is not None:
                 store.reduce_grads()
             optimizer.step()
             store.full()
-            return loss
-        dense = {k: v for k, v in params.items() if k not in names}
-        rows = self.model.table_rows(batch)
-        gathered = {n: store.table_rows(n, rows[n]).requires_grad_() for n in names}
-        loss = self.model.loss_tables(dense, gathered, batch, self.generator)
-        if share is not None:
-            loss = loss * share
-        loss.backward()
-        if share is not None:
-            store.reduce_grads()
-        optimizer.step()
-        store.full()
-        self.table_count += 1
-        lr = float(self.cfg.learning_rate)
-        for n in names:
-            r, g = rows[n], gathered[n].grad
-            if share is not None:
-                r, g = self.dp_table_rows(store, n, r, g)
-            t, self.table_state[n] = table_adam_update(
-                store.shards[n], self.table_state[n], store.owned_rows(n, r), g,
-                self.table_count, lr, ADAM_BETAS[0], ADAM_BETAS[1], ADAM_EPS)
-            store.set(n, t)
+            self.table_count += 1
+            lr = float(self.cfg.learning_rate)
+            for n in names:
+                r, g = rows[n], gathered[n].grad
+                if share is not None:
+                    r, g = self.dp_table_rows(store, n, r, g)
+                t, self.table_state[n] = table_adam_update(
+                    store.shards[n], self.table_state[n], store.owned_rows(n, r), g,
+                    self.table_count, lr, ADAM_BETAS[0], ADAM_BETAS[1], ADAM_EPS)
+                store.set(n, t)
         return loss
 
     def dp_table_rows(self, store: ShardedParams, name: str, rows: torch.Tensor,
@@ -407,9 +421,10 @@ class Trainer:
             return sample_negatives(self.generator, batch.users, self.history,
                                     self.model.num_item, int(self.cfg.neg_candidates))
 
-        neg = outside()
-        return dataclasses.replace(batch, neg_items=neg,
-                                   int_items=outside() if self.model.needs_int_items else None)
+        with tracing.span("train.sample"):
+            neg = outside()
+            interest = outside() if self.model.needs_int_items else None
+        return dataclasses.replace(batch, neg_items=neg, int_items=interest)
 
     @deterministic_mode()
     def train_epoch(self, params: Params, optimizer: torch.optim.Optimizer) -> float:
@@ -417,17 +432,25 @@ class Trainer:
         the sum of the batch losses."""
         losses = []
         bs = int(self.cfg.batch_size)
-        if self.user_rows:
-            for batch in make_epoch_batches(self.generator, self.dataset.num_user, bs):
+        with tracing.span("train.batches"):
+            if self.user_rows:
+                batches = make_epoch_batches(self.generator, self.dataset.num_user, bs)
+            else:
+                tracing.count("train.edges", self.edges.shape[0])
+                batches = make_edge_batches(self.generator, self.edges, bs)
+        for batch in batches:
+            with tracing.span("train.step"):
+                if not self.user_rows:
+                    batch = self.bpr_batch(batch)
                 losses.append(self.train_step(params, optimizer, batch).detach())
-        else:
-            for batch in make_edge_batches(self.generator, self.edges, bs):
-                loss = self.train_step(params, optimizer, self.bpr_batch(batch))
-                losses.append(loss.detach())
-        losses = torch.stack(losses)
-        if self.dp_split:  # each batch's loss: the sum of its slices' parts
-            losses = self.mesh.all_reduce(losses, "dp")
-        return float(losses.sum())  # the epoch's one host sync
+        with tracing.span("train.sync"):
+            # freed while the card still runs the queued steps: freeing an
+            # epoch's batches after the wait would leave it idle (~2 ms)
+            del batches
+            losses = torch.stack(losses)
+            if self.dp_split:  # each batch's loss: the sum of its slices' parts
+                losses = self.mesh.all_reduce(losses, "dp")
+            return float(losses.sum())  # the epoch's one host sync
 
     @torch.no_grad()
     @deterministic_mode()
@@ -435,23 +458,30 @@ class Trainer:
         """(val, test, rank_list): full-catalog top-``rank_topk`` ranking with
         seen items masked, the users split over the mesh's ranks (on one
         device, all of them), then the metrics of both splits."""
+        tracing.count("eval.passes")
         if self.model.rank_mode == "embeddings":
-            if self.model.stateful:
-                user_emb, item_emb = self.model.embeddings_stateful(params, self.model_state)
-            else:
-                user_emb, item_emb = self.model.embeddings(params)
-            rank_list = sharded_rank(user_emb, item_emb, self.history, self.model.num_user,
-                                     self.cfg.rank_topk, self.mesh, self.cfg.eval_user_chunk)
+            with tracing.span("eval.embeddings"):
+                if self.model.stateful:
+                    user_emb, item_emb = self.model.embeddings_stateful(params,
+                                                                        self.model_state)
+                else:
+                    user_emb, item_emb = self.model.embeddings(params)
+            with tracing.span("eval.rank"):
+                rank_list = sharded_rank(user_emb, item_emb, self.history, self.model.num_user,
+                                         self.cfg.rank_topk, self.mesh, self.cfg.eval_user_chunk)
         else:
             # a fresh draw a ranking pass (LightGT's evaluation subsets, as the
             # reference's EvalDataset reshuffles, dataload.py:124-145)
             if hasattr(self.model, "resample_eval"):
                 self.model.resample_eval()
-            rank_list = sharded_rank_scores(self.model, params, self.history,
-                                            self.model.num_user, self.cfg.rank_topk, self.mesh,
-                                            self.model_state, self.cfg.eval_user_chunk)
-        val, test = gene_metrics_pair(rank_list, list(self.cfg.topk),
-                                      self.val_split, self.test_split)
+            with tracing.span("eval.rank"):
+                rank_list = sharded_rank_scores(self.model, params, self.history,
+                                                self.model.num_user, self.cfg.rank_topk,
+                                                self.mesh, self.model_state,
+                                                self.cfg.eval_user_chunk)
+        with tracing.span("eval.metrics"):
+            val, test = gene_metrics_pair(rank_list, list(self.cfg.topk),
+                                          self.val_split, self.test_split)
         return val, test, rank_list
 
     def checkpoint_tree(self, params: Params, optimizer: torch.optim.Optimizer,
@@ -533,14 +563,24 @@ class Trainer:
         return prof
 
     def stop_profile(self, prof, epoch: int) -> str:
-        """Ends ``prof`` and writes its Chrome trace into ``profile_dir``;
-        returns the file's path. On the card a trace without a device
-        kernel raises: the profiler could not record the card."""
+        """Ends ``prof``, logs the profiled epoch's spans (a line each:
+        calls, host ms, host self ms, device ms) and counters, clears them
+        (``tracing.reset``) and writes the Chrome trace into
+        ``profile_dir``; returns the file's path. On the card a trace
+        without a device kernel raises: the profiler could not record the
+        card."""
         from torch.autograd import DeviceType
 
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
+        snap = tracing.snapshot()
+        for name, s in snap["spans"].items():
+            device = "none" if s["device_ms"] is None else f"{s['device_ms']:.3f}"
+            logging.info("span %s: calls %d, host %.3f ms, host self %.3f ms, device %s ms",
+                         name, s["calls"], s["host_ms"], s["host_self_ms"], device)
+        logging.info("counters: %s", ", ".join(f"{k} {v}" for k, v in snap["counters"].items()))
+        tracing.reset()
         if self.device.type == "cuda" and not any(
                 e.device_type == DeviceType.CUDA for e in prof.events()):
             raise RuntimeError("--profile_dir: the profiler recorded no kernel on the card "
