@@ -592,7 +592,8 @@ DATASET = "baby"
 # the configuration is the Config defaults (dim_E and feature_embed 64,
 # batch 1024, graph_compute_dtype bfloat16), as bench.py's FREEDOM leg.
 FREEDOM_DATASET, FREEDOM_EPOCHS = "sports", 2
-KERNELS = ("fused_mha", "fused_mha_bwd", "row_adam", "streaming_lse", "prefix_scan")
+KERNELS = ("fused_mha", "fused_mha_bwd", "row_adam", "streaming_lse", "prefix_scan",
+           "csr_spmm")
 # fp32 attention over 1034 keys with inputs ~N(0, 1): the kernel's online
 # softmax sums in another order than the reference's; 1e-5 is expected,
 # with or without dropout (both draw the same Philox mask).
@@ -1009,6 +1010,41 @@ def reset_counts():
 def other_counts(*mine):
     """The launch counts of every wrapper but ``mine``."""
     return tuple(f.launches for f in kernel_wrappers() if f not in mine)
+
+
+# the CSR gather-sums a ranking pass or an export makes (the segment
+# graph's sums forward) of each model at its first combo, where its U-I
+# graph is a segment graph: MICRO, MGCN and SMORE take one at every size,
+# DualGNN (and LightGCN and SGL, two a layer) above dense_prop_threshold,
+# at the catalogs. A training step makes each sum with its input's
+# gradient: twice as many.
+CSR_SUMS = {"DualGNN": 4, "MICRO": 4, "MGCN": 6, "SMORE": 7}
+
+
+def csr_sums(model) -> int:
+    """``model``'s CSR gather-sums a ranking pass, 0 where it holds no
+    segment graph."""
+    from chaorec_tpu_torch.graphs.norm_adj import BipartiteGraph
+
+    graph = getattr(model, "graph", None)
+    if not isinstance(graph, BipartiteGraph) or graph.use_dense:
+        return 0
+    return 2 * model.n_layers if model.name in ("LightGCN", "SGL") else CSR_SUMS[model.name]
+
+
+def check_step_launches(phase: str, model, steps: int, *mine) -> int:
+    """Checks the CSR gather-sum's launches since ``reset_counts``: those of
+    ``steps`` training steps of ``model`` (``csr_sums`` twice a step), where
+    nothing else launched it; and that no other kernel but ``mine``
+    (counted by the caller) launched. Returns the launches."""
+    from chaorec_tpu_torch.ops.csr_spmm import csr_spmm
+
+    n, want = csr_spmm.launches, 2 * steps * csr_sums(model)
+    others = other_counts(csr_spmm, *mine)
+    say(phase, f"{model.name}'s {steps} steps: csr_spmm launches {n} (expected {want}: "
+        f"{2 * csr_sums(model)} a step), other kernels {others} (expected none)")
+    check(n == want and not any(others), f"{model.name}'s steps launched {n} and {others}")
+    return n
 
 
 def lse_bound(b, n, e, kernel):
@@ -2218,11 +2254,14 @@ def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0, k4_st
     """One ``cli.run`` of a model on ``ds`` whose path reaches no kernel (the
     linear-GCN family's, the id-only models'), where no kernel launch is
     expected, or (``lse_terms``, MICRO's at bf16, the diffusion family's) K2,
-    each of its forward, dq and dk ``lse_terms`` times a training step, and
-    (``k4_steps``, MHRec's) K4 that many times a training step; prints each
+    each of its forward, dq and dk ``lse_terms`` times a training step,
+    (``k4_steps``, MHRec's) K4 that many times a training step, and (a
+    model on a segment graph) the CSR gather-sum, ``csr_sums`` times a
+    ranking pass or the export and twice that a training step; prints each
     epoch's loss, walls and peak memory, each operator's build and the
     export's wall. Returns (models, operators)."""
     from chaorec_tpu_torch import cli
+    from chaorec_tpu_torch.ops.csr_spmm import csr_spmm
     from chaorec_tpu_torch.ops.prefix_scan import prefix_cumsum
 
     probe = EpochProbe()
@@ -2237,7 +2276,8 @@ def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0, k4_st
     finally:
         logging.getLogger().removeFilter(probe)
     run_s = time.perf_counter() - t0
-    k2, k4, others = lse_counts(), prefix_cumsum.launches, other_counts(*kernel_wrappers()[3:])
+    k2, k4, n_csr = lse_counts(), prefix_cumsum.launches, csr_spmm.launches
+    others = other_counts(*kernel_wrappers()[3:])  # K2, K4 and the CSR sum are checked apart
     for op in built.ops:
         say(phase, f"{name}: {describe_op(op)}")
     for e, ep in enumerate(probe.epochs):
@@ -2251,16 +2291,22 @@ def linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms: int = 0, k4_st
     exported = f" + export {export.seconds:.3f} s" if cfg.export_artifact else ""
     expected = (cfg.num_epoch * n_batches * lse_terms,) * 3
     k4_expected = cfg.num_epoch * n_batches * k4_steps
+    # a ranking pass each epoch, and the export's tables
+    passes, sums = cfg.num_epoch + bool(cfg.export_artifact), csr_sums(built.models[0])
+    csr_expected = (2 * cfg.num_epoch * n_batches + passes) * sums
     launched = (f"streaming_lse fwd/dq/dk launches {k2} (expected {expected}: {lse_terms} terms "
                 f"a step), prefix_cumsum launches {k4} (expected {k4_expected}: {k4_steps} a "
                 f"step), other kernels {others} (expected none)" if lse_terms or k4_steps else
                 f"kernel launches {other_counts()} (expected none: no TPU kernel lies on this "
-                "path)")
+                "path)" if not sums else f"other kernels {others} (expected none)")
+    if sums:
+        launched += (f", csr_spmm launches {n_csr} (expected {csr_expected}: {2 * sums} a "
+                     f"step, {sums} a ranking pass or export, {passes} of them)")
     say(phase, f"{name} cli.run {combo}: {cfg.num_epoch} epochs x {n_batches} batches of "
         f"{cfg.batch_size} {'users' if user_rows else 'edges'}{exported}: {run_s:.3f} s wall; "
         + launched)
-    check(k2 == expected and k4 == k4_expected and not any(others),
-          f"{name} launched {k2}, {k4} and {others}")
+    check(k2 == expected and k4 == k4_expected and n_csr == csr_expected and not any(others),
+          f"{name} launched {k2}, {k4}, {n_csr} and {others}")
     check(len(probe.epochs) == cfg.num_epoch, f"{len(probe.epochs)} epochs logged")
     check(all(math.isfinite(ep["loss"]) for ep in probe.epochs), "non-finite epoch loss")
     check(sorted(best) == [5, 10, 20] and all(
@@ -3970,8 +4016,8 @@ def towers3_phases(args, device, ds) -> float:
         reset_counts()
         g_loss, g_grads, _ = device_step(card_model, params, None, batch, draws,
                                          pinned_sides(kinks.replay(), cuts.replay()))
-        worst, loss_rel, others = worst_share(g_grads, c_grads), abs(g_loss - c_loss) / abs(
-            c_loss), other_counts()
+        worst, loss_rel = worst_share(g_grads, c_grads), abs(g_loss - c_loss) / abs(c_loss)
+        n_csr = check_step_launches("tw3step", card_model, 1)
         # not a gate: how far the CPU's own step moves from params nudged by
         # 2^-24 of each entry, on the same kink sides
         nudge_gen = torch.Generator().manual_seed(52)
@@ -3988,9 +4034,8 @@ def towers3_phases(args, device, ds) -> float:
             f"worst gradient {worst[1]} at {worst[0]:.3f} of its bound (the CPU's own step from "
             f"params nudged by 2^-24: {spread[1]} at {spread[0]:.3f}, not a gate); ReLU and "
             f"LeakyReLU units on the other side {kinks.flips}, clamp, modality, sign and gap "
-            f"entries {cuts.flips}; kernel launches {others}")
-        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0 and not any(others),
-              f"{name} card step disagrees")
+            f"entries {cuts.flips}; csr_spmm launches {n_csr}, no other kernel")
+        check(loss_rel <= STEP_LOSS_RTOL and worst[0] <= 1.0, f"{name} card step disagrees")
         del cpu_model, card_model, trainer
     torch.cuda.empty_cache()
 
@@ -4012,18 +4057,22 @@ def towers3_phases(args, device, ds) -> float:
         params = trainer.init_params()
         opt = trainer.make_optimizer(params)
         batch = first_batch(trainer, cfg)
+        steps = []
+
+        def step():
+            steps.append(1)
+            trainer.train_step(params, opt, batch)
+
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         wall_ms, busy_ms = device_profile(
             "tw3profile", f"one {name} training step of {cfg.batch_size} edges at "
-            f"{LINEAR_DATASET} (forward, backward, Adam)",
-            lambda: trainer.train_step(params, opt, batch),
+            f"{LINEAR_DATASET} (forward, backward, Adam)", step,
             os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step_profile.txt"),
             groups=groups)
-        others = other_counts()
         say("tw3profile", f"{name} step peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel launches {others}")
-        check(not any(others), f"{name} step launched {others}")
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check_step_launches("tw3profile", model, len(steps))
         if name == "GUME":
             # bdot's backward casts the bf16 operand to a float32 copy: R (or
             # its transpose) once a product with R, the (I, I) I-I or kNN
@@ -4348,8 +4397,8 @@ def rebuild_card_vs_cpu(name, cfg, sds, device) -> dict:
         reset_counts()
         g_loss, g_grads, g_state = device_step(card_model, params, state, batch, None,
                                                pins.replay(), flat=False)
-        k2, others = lse_counts(), other_counts(*kernel_wrappers()[3:6])
-        check(not any(others), f"{name} card step launched {others}")
+        k2 = lse_counts()
+        check_step_launches("rgstep", card_model, 1, *kernel_wrappers()[3:6])
         worst = worst_share(g_grads, c_grads, rtol)
         gated = max(g.abs().max().item() for k, g in g_grads.items()
                     if k in cpu_model.epoch0_params)
@@ -4630,20 +4679,26 @@ def rebuild_phases(args, device, ds) -> tuple:
             del graph
             for batch in epoch_batches(trainer, cfg, 2):
                 what = "batch 0 (the graph build)" if batch.index == 0 else "a frozen batch"
+                steps = []
+
+                def step():
+                    steps.append(1)
+                    trainer.train_step(params, opt, batch)
+
                 torch.cuda.reset_peak_memory_stats()
                 reset_counts()
                 device_profile("rebuild", f"one {name} training step on {what}, "
                                f"{cfg.batch_size} edges at {LINEAR_DATASET} (forward, backward, "
-                               "Adam over every param)",
-                               lambda: trainer.train_step(params, opt, batch),
+                               "Adam over every param)", step,
                                os.path.join(args.out_dir, f"chip_smoke_{name.lower()}_step"
                                             f"{batch.index}_profile.txt"), groups=groups)
-                k2, others = lse_counts(), other_counts(*kernel_wrappers()[3:6])
-                expected = (3 * terms,) * 3  # device_profile steps three times
+                k2 = lse_counts()
+                expected = (len(steps) * terms,) * 3
                 say("rebuild", f"{name} step on {what}: peak device memory "
                     f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K2 fwd/dq/dk "
-                    f"launches {k2} (expected {expected}), other kernels {others}")
-                check(k2 == expected and not any(others), f"{name} step launched {k2}, {others}")
+                    f"launches {k2} (expected {expected}: {len(steps)} steps)")
+                check(k2 == expected, f"{name} step launched K2 {k2}")
+                check_step_launches("rebuild", model, len(steps), *kernel_wrappers()[3:6])
             del models, model, trainer, params, opt
             torch.cuda.empty_cache()
 
@@ -5148,7 +5203,7 @@ def diffusion_phases(args, device, ds) -> tuple:
                 say(phase, f"{name} {what} step: peak device memory "
                     f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K2 fwd/dq/dk "
                     f"launches {k2}, K4 {k4} (expected {expected[0]}, {expected[1]})")
-                check((k2, k4) == expected and not any(other_counts(*kernel_wrappers()[3:])),
+                check((k2, k4) == expected and not any(other_counts(*kernel_wrappers()[3:7])),
                       f"{name} {what} step launched {k2}, {k4}")
             del models, model, family, base, params, main, dn_opt, trainers
             torch.cuda.empty_cache()
@@ -6305,7 +6360,8 @@ CATALOG_GROUPS = {
 def catalog_step_profile(phase: str, name: str, model, ds, cfg, out_dir: str) -> tuple:
     """One training step of ``model`` on ``ds`` under the profiler (device
     time by kernel group, idle share) and its peak device memory. Returns
-    (wall ms, device ms)."""
+    (wall ms, device ms, the steps taken: ``device_profile``'s two unprofiled
+    calls and its profiled tries)."""
     from chaorec_tpu_torch.train.loop import Trainer
 
     trainer = Trainer(model, ds, cfg)
@@ -6313,25 +6369,33 @@ def catalog_step_profile(phase: str, name: str, model, ds, cfg, out_dir: str) ->
     opt = trainer.make_optimizer(params)
     model.pre_epoch(params, 0)
     batch = first_batch(trainer, cfg)
+    steps = []
+
+    def step():
+        steps.append(1)
+        trainer.train_step(params, opt, batch)
+
     torch.cuda.reset_peak_memory_stats()
-    out = device_profile(phase, f"one {name} training step of {cfg.batch_size} edges at "
-                         f"{ds.name} ({ds.num_user} x {ds.num_item}; forward, backward, Adam)",
-                         lambda: trainer.train_step(params, opt, batch),
-                         os.path.join(out_dir, f"chip_smoke_{name.lower()}_{ds.name}_step.txt"),
-                         groups=CATALOG_GROUPS)
+    wall_ms, busy_ms = device_profile(
+        phase, f"one {name} training step of {cfg.batch_size} edges at {ds.name} "
+        f"({ds.num_user} x {ds.num_item}; forward, backward, Adam)", step,
+        os.path.join(out_dir, f"chip_smoke_{name.lower()}_{ds.name}_step.txt"),
+        groups=CATALOG_GROUPS)
     say(phase, f"{name} step peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
         f" GiB")
     del trainer, params, opt, batch
-    return out
+    return wall_ms, busy_ms, len(steps)
 
 
 def catalog_cli_run(phase: str, args, device, ds, name: str, lse_terms: int = 0,
                     export: str = "", probes=()):
     """``name`` at its first combo, its CATALOG_EPOCHS on ``ds``, through
     ``linear_cli_run`` on ``ds`` (its launches checked: K2 ``lse_terms``
-    times a step, nothing else), with the ranking passes probed. Returns
-    (model, RankProbe, the run's wall seconds, its K2 launches)."""
+    times a step, the CSR gather-sum by ``csr_sums``, nothing else), with
+    the ranking passes probed. Returns (model, RankProbe, the run's
+    wall seconds, its K2 launches, its CSR gather-sum launches)."""
     from chaorec_tpu_torch.config import Config
+    from chaorec_tpu_torch.ops.csr_spmm import csr_spmm
 
     combo, grid = first_combo(name)
     cfg = Config(Model=name, data_path=ds.name, seed=args.seed).replace(**combo).replace(
@@ -6343,11 +6407,11 @@ def catalog_cli_run(phase: str, args, device, ds, name: str, lse_terms: int = 0,
             stack.enter_context(p)
         models, _ = linear_cli_run(phase, device, ds, name, cfg, grid, lse_terms=lse_terms)
     run_s = time.perf_counter() - t0
-    k2 = lse_counts()
+    k2, n_csr = lse_counts(), csr_spmm.launches
     model = models[0]
     check(len(models) == 1 and model.device.type == device.type, f"{name} is not on the card")
     ranks.report(phase, ds, cfg.eval_user_chunk)
-    return model, cfg, ranks, run_s, k2
+    return model, cfg, ranks, run_s, k2, n_csr
 
 
 def catalog_summary(phase: str, number: int, name: str, ds, run_s: float, peak_gib: float,
@@ -6361,8 +6425,8 @@ def describe_graph(graph) -> str:
     if graph.use_dense:
         return (f"the dense {graph.compute_dtype} R {tuple(graph.dense_r.shape)}, "
                 f"{graph.dense_r.numel() * graph.dense_r.element_size() / 1e9:.2f} GB")
-    return (f"the segment graph ({graph.num_edges} edges by user and by item, index_add_; "
-            f"no dense R)")
+    return (f"the segment graph ({graph.num_edges} edges by user and by item, the CSR "
+            f"gather-sum; no dense R)")
 
 
 def k2_catalog_holds(phase: str, gen, device, sides: dict, errs: dict) -> dict:
@@ -6430,55 +6494,64 @@ def microlens_phases(args, device) -> dict:
     no combined operator, exported and served; (74) SGL, 1 epoch there, its
     K2 launches counted; (75) GUME, 1 epoch on its dense bf16 R (the 8e8
     budget), its fp32 copies in bdot's backward timed; each step profiled.
-    Returns {"sgl_k2": SGL's (fwd, dq, dk) launches}."""
+    Returns {"sgl_k2": SGL's (fwd, dq, dk) launches, "csr": the CSR
+    gather-sum's launches by phase}."""
     from chaorec_tpu_torch.config import Config
 
     phase = "catalog"
     thr = Config().dense_prop_threshold
+    csr = {}
     mds = catalog_set(args, MICROLENS, device, features=True)  # GUME reads the features
     # 73. LightGCN at microlens: the segment graph, no operator -------------
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "lightgcn_microlens.npz")
-        model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, mds, "LightGCN",
-                                                      export=art)
+        model, cfg, ranks, run_s, _, cli_csr = catalog_cli_run(phase, args, device, mds,
+                                                               "LightGCN", export=art)
         peak = ranks.run_peak_gib()
         check(mds.num_user * mds.num_item > thr and not model.graph.use_dense
               and model.graph.dense_r is None and model.linear_op is None,
               "LightGCN at microlens is not on the segment graph without an operator")
         reset_counts()
         check_embeddings_serving(phase, art, mds, device, "LightGCN")
-        catalog_step_profile(phase, "LightGCN", model, mds, cfg, args.out_dir)
-        check(not any(other_counts()), f"LightGCN's serving and step launched {other_counts()}")
+        steps = catalog_step_profile(phase, "LightGCN", model, mds, cfg, args.out_dir)[2]
+        csr[73] = dict(model="LightGCN", sums=csr_sums(model), cli=cli_csr, steps=steps,
+                       step=check_step_launches(phase, model, steps))
         catalog_summary(phase, 73, "LightGCN", mds, run_s, peak,
                         f"U x I {mds.num_user * mds.num_item / 1e6:.1f} M > dense_prop_threshold "
                         f"{thr / 1e6:.0f} M: {describe_graph(model.graph)}, no combined operator",
-                        "none (expected none)")
+                        f"csr_spmm {cli_csr} in the run, {csr[73]['step']} in {steps} profiled "
+                        f"steps; no other kernel (expected none)")
         del model
         gc.collect()
         torch.cuda.empty_cache()
 
     # 74. SGL at microlens: the segment graph, K2 two terms a step ----------
-    model, cfg, ranks, run_s, sgl_k2 = catalog_cli_run(phase, args, device, mds, "SGL",
-                                                       lse_terms=2)
+    model, cfg, ranks, run_s, sgl_k2, cli_csr = catalog_cli_run(phase, args, device, mds, "SGL",
+                                                                lse_terms=2)
     peak = ranks.run_peak_gib()
     check(not model.graph.use_dense, "SGL at microlens is not on the segment graph")
     reset_counts()
-    catalog_step_profile(phase, "SGL", model, mds, cfg, args.out_dir)
+    steps = catalog_step_profile(phase, "SGL", model, mds, cfg, args.out_dir)[2]
+    k2_steps = lse_counts()
+    check(k2_steps == (2 * steps,) * 3, f"SGL's {steps} profiled steps launched K2 {k2_steps}")
+    csr[74] = dict(model="SGL", sums=csr_sums(model), cli=cli_csr, steps=steps,
+                   step=check_step_launches(phase, model, steps, *kernel_wrappers()[3:6]))
     catalog_summary(phase, 74, "SGL", mds, run_s, peak, describe_graph(model.graph),
-                    f"streaming_lse fwd/dq/dk {sgl_k2} (2 terms a step, each with all three)")
+                    f"streaming_lse fwd/dq/dk {sgl_k2} (2 terms a step, each with all three), "
+                    f"csr_spmm {cli_csr} in the run, {csr[74]['step']} in {steps} profiled steps")
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
     # 75. GUME at microlens: the dense bf16 R under its 8e8 budget ----------
-    model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, mds, "GUME")
+    model, cfg, ranks, run_s, _, _ = catalog_cli_run(phase, args, device, mds, "GUME")
     peak = ranks.run_peak_gib()
     r = model.r_norm
     check(model.graph_bf16 and r.dtype == torch.bfloat16 and tuple(r.shape) == (
         mds.num_user, mds.num_item) and mds.num_user * mds.num_item <= model.dense_entry_budget,
           "GUME at microlens is not on its dense bf16 R")
     reset_counts()
-    wall_ms, busy_ms = catalog_step_profile(phase, "GUME", model, mds, cfg, args.out_dir)
+    wall_ms, busy_ms, _ = catalog_step_profile(phase, "GUME", model, mds, cfg, args.out_dir)
     n_r = 2 * model.n_ui_layers + 1
     n_ii = model.n_ui_layers + 2 * model.n_layers
     r_ms = cuda_ms(lambda: model.r_norm.float(), 5)
@@ -6497,37 +6570,42 @@ def microlens_phases(args, device) -> dict:
     del model, r, mds
     gc.collect()
     torch.cuda.empty_cache()
-    return {"sgl_k2": list(sgl_k2)}
+    return {"sgl_k2": list(sgl_k2), "csr": csr}
 
 
-def electronics_phases(args, device) -> None:
+def electronics_phases(args, device) -> dict:
     """Phases 76-78 on the electronics-sized set (with the loader's
     synthetic features): (76) LightGCN, 1 epoch, every user ranked a chunk
     at a time, exported and served; (77) DualGNN, 1 epoch, its user
     co-occurrence graph on the sparse path (timed, with the host's peak);
     (78) BSPM on the set's first BSPM_USERS users, its randomized SVD, one
-    scoring pass; the trained models' steps profiled."""
+    scoring pass; the trained models' steps profiled. Returns the CSR
+    gather-sum's launches by phase."""
     from chaorec_tpu_torch.config import Config
     from chaorec_tpu_torch.graphs import user_graph
     from chaorec_tpu_torch.models import bspm
 
     phase = "catalog"
+    csr = {}
     eds = catalog_set(args, ELECTRONICS, device, features=True)
     # 76. LightGCN at electronics: every user ranked a chunk at a time ------
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "lightgcn_electronics.npz")
-        model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, eds, "LightGCN",
-                                                      export=art)
+        model, cfg, ranks, run_s, _, cli_csr = catalog_cli_run(phase, args, device, eds,
+                                                               "LightGCN", export=art)
         peak = ranks.run_peak_gib()
         check(not model.graph.use_dense and model.linear_op is None,
               "LightGCN at electronics is not on the segment graph without an operator")
         reset_counts()
         check_embeddings_serving(phase, art, eds, device, "LightGCN")
-        catalog_step_profile(phase, "LightGCN", model, eds, cfg, args.out_dir)
-        check(not any(other_counts()), f"LightGCN's serving and step launched {other_counts()}")
+        steps = catalog_step_profile(phase, "LightGCN", model, eds, cfg, args.out_dir)[2]
+        csr[76] = dict(model="LightGCN", sums=csr_sums(model), cli=cli_csr, steps=steps,
+                       step=check_step_launches(phase, model, steps))
         catalog_summary(phase, 76, "LightGCN", eds, run_s, peak,
                         f"{describe_graph(model.graph)}, no combined operator; ranking "
-                        f"{cfg.eval_user_chunk} users a block", "none (expected none)")
+                        f"{cfg.eval_user_chunk} users a block",
+                        f"csr_spmm {cli_csr} in the run, {csr[76]['step']} in {steps} profiled "
+                        f"steps; no other kernel (expected none)")
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -6537,8 +6615,8 @@ def electronics_phases(args, device) -> None:
         "dense_threshold"].default
     sparse = CallProbe(user_graph, "_build_user_cooccurrence_sparse", host_peak=True)
     with UserGraphProbe() as uu:
-        model, cfg, ranks, run_s, _ = catalog_cli_run(phase, args, device, eds, "DualGNN",
-                                                      probes=(sparse,))
+        model, cfg, ranks, run_s, _, cli_csr = catalog_cli_run(phase, args, device, eds,
+                                                               "DualGNN", probes=(sparse,))
     peak = ranks.run_peak_gib()
     build = uu.builds[0]
     check(len(sparse.calls) == 1 and eds.num_user * eds.num_item > dense_cells,
@@ -6556,11 +6634,13 @@ def electronics_phases(args, device) -> None:
     check(bool(np.isfinite(cnt).all()) and int(lengths.max()) <= idx.shape[1]
           and bool((cnt[:, :-1] >= cnt[:, 1:]).all()), "DualGNN's co-occurrence graph is malformed")
     reset_counts()
-    catalog_step_profile(phase, "DualGNN", model, eds, cfg, args.out_dir)
-    check(not any(other_counts()), f"DualGNN's step launched {other_counts()}")
+    steps = catalog_step_profile(phase, "DualGNN", model, eds, cfg, args.out_dir)[2]
+    csr[77] = dict(model="DualGNN", sums=csr_sums(model), cli=cli_csr, steps=steps,
+                   step=check_step_launches(phase, model, steps))
     catalog_summary(phase, 77, "DualGNN", eds, run_s, peak,
                     f"{describe_graph(model.graph)}; the sparse co-occurrence path",
-                    "none (expected none)")
+                    f"csr_spmm {cli_csr} in the run, {csr[77]['step']} in {steps} profiled "
+                    f"steps; no other kernel (expected none)")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6589,16 +6669,17 @@ def electronics_phases(args, device) -> None:
                     f"{tuple(k2)} of K2 (expected none)")
     del model, cut, eds
     bspm._SPECTRAL_CACHE.clear()
+    return csr
 
 
 def catalog_child_main(args, device) -> int:
     """Phases 73-78, run by ``--catalog_child``: ``microlens_phases``, then
-    ``electronics_phases``. Writes the result's JSON (SGL's K2 launches) to
-    ``args.catalog_child``."""
+    ``electronics_phases``. Writes the result's JSON (SGL's K2 launches, the
+    CSR gather-sum's launches by phase) to ``args.catalog_child``."""
     result = microlens_phases(args, device)
     gc.collect()
     torch.cuda.empty_cache()
-    electronics_phases(args, device)
+    result["csr"].update(electronics_phases(args, device))
     with open(args.catalog_child, "w") as fh:
         json.dump(result, fh)
     return 0
@@ -6630,6 +6711,107 @@ def catalog_phases(args, device, child: CatalogChild) -> tuple:
     return (time.perf_counter() - t_start, tuple(result["sgl_k2"]),
             dict(sides[MICROLENS], max_abs_err=errs), dict(sides[ELECTRONICS], max_abs_err=errs),
             result)
+
+
+CSR_WIDTHS = (64, 45)  # the benchmark's dim_E, and an odd width (a partial column tile)
+CSR_CHAIN_CYCLES = 4  # cycles of one dependent fp32 add: a row's sum is a chain of them
+
+
+def sm_max_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi), for a chain's bound."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    return float(out.stdout.split()[0])
+
+
+def csr_spmm_phases(args, device) -> dict:
+    """Phase 80: the segment graph's CSR gather-sum (``csrc/csr_spmm.cu``)
+    on the microlens and electronics catalogs' graphs (``catalog_set``), at
+    D 64 and 45: each call of a training step (apply_r and apply_rt forward
+    at fp32 and from a bf16 copy, and their input gradients, the fp32
+    cotangent unrounded) held bit for bit to its plain version
+    (``csr_spmm_reference``) and to the parent path (the gather, the product
+    and the deterministic ``index_add_``, or the gather's ``index_put_``
+    with accumulate, its backward), then timed (20 calls back to back, and
+    as a CUDA graph) beside its bounds (bytes: each gathered row once an
+    edge, the ids and weights, the output; and the hottest row's chain of
+    dependent adds), the plain version and the parent path (the library
+    yardstick), both 3 calls under the deterministic mode. Returns
+    {catalog: {call: timings}} at D 64."""
+    from chaorec_tpu_torch.graphs.norm_adj import build_norm_adj
+    from chaorec_tpu_torch.ops.csr_spmm import csr_spmm, csr_spmm_reference
+    from chaorec_tpu_torch.train.loop import deterministic_mode
+
+    phase = "csr"
+    mhz = sm_max_mhz()
+    gen = torch.Generator(device=device).manual_seed(args.seed + 80)
+    out = {}
+    for name in (MICROLENS, ELECTRONICS):
+        ds = catalog_set(args, name, device)
+        g = build_norm_adj(ds.train_edges, ds.num_user, ds.num_item, device, use_dense=False)
+        e = g.num_edges
+        # (call, rows, the gathered table's rows, CSR, the parent's (dst, src,
+        # w), a bf16 input, the parent's form is the gather's backward)
+        by_u, by_i = (g.u_by_u, g.i_by_u, g.w_by_u), (g.i_by_i, g.u_by_i, g.w_by_i)
+        grad_r, grad_rt = (g.i_by_u, g.u_by_u, g.w_by_u), (g.u_by_i, g.i_by_i, g.w_by_i)
+        calls = (("fwd_r", g.num_user, g.num_item, g.csr_r, by_u, False, False),
+                 ("fwd_r_bf16", g.num_user, g.num_item, g.csr_r, by_u, True, False),
+                 ("fwd_rt", g.num_item, g.num_user, g.csr_rt, by_i, False, False),
+                 ("fwd_rt_bf16", g.num_item, g.num_user, g.csr_rt, by_i, True, False),
+                 ("bwd_r", g.num_item, g.num_user, g.csr_r_grad, grad_r, False, True),
+                 ("bwd_rt", g.num_user, g.num_item, g.csr_rt_grad, grad_rt, False, True))
+        out[name] = {}
+        for d in CSR_WIDTHS:
+            for call, n_rows, n_src, csr, (dst, src, w), bf16, backward in calls:
+                x = torch.randn((n_src, d), generator=gen, device=device)
+                xin = x.to(torch.bfloat16) if bf16 else x
+                xp = xin.float()
+
+                def parent():
+                    # forward: zeros.index_add_(dst, w x[src]); the gather's
+                    # backward: zeros.index_put_(src, w g[dst], accumulate)
+                    msgs = w[:, None] * xp[src]
+                    z = torch.zeros((n_rows, d), device=device)
+                    if backward:
+                        return z.index_put_((dst,), msgs, accumulate=True)
+                    return z.index_add_(0, dst, msgs)
+
+                before = csr_spmm.launches
+                got = csr_spmm(xin, csr)
+                torch.cuda.synchronize()
+                check(csr_spmm.launches == before + 1, f"csr_spmm {name} {call} did not launch")
+                with deterministic_mode():
+                    want, plain = parent(), csr_spmm_reference(xin, csr)
+                check(torch.equal(got, want) and torch.equal(got, plain),
+                      f"csr_spmm {name} {call} D {d}: bits differ from the parent path "
+                      f"({(got - want).abs().max().item():.3e}) or the plain version "
+                      f"({(got - plain).abs().max().item():.3e})")
+                deg = int(csr.ptr[1] - csr.ptr[0])
+                nbytes = e * d * xin.element_size() + 8 * e + n_rows * d * 4 + 8 * n_rows
+                b_ms, by = bound_ms(2 * e * d, nbytes)
+                chain_ms = deg * CSR_CHAIN_CYCLES / (mhz * 1e3)
+                ms = cuda_ms(lambda: csr_spmm(xin, csr), 20)
+                g_ms = graph_ms(lambda: csr_spmm(xin, csr))
+                with deterministic_mode():
+                    plain_ms = cuda_ms(lambda: csr_spmm_reference(xin, csr), 3)
+                    parent_ms = cuda_ms(parent, 3)
+                say(phase, f"{name} {call} ({n_rows} rows from ({n_src}, {d}) "
+                    f"{'bf16' if bf16 else 'fp32'}, {e} edges, hottest row {deg}): bits equal "
+                    f"the parent path's and the plain version's; kernel {ms:.4f} ms (graph "
+                    f"{g_ms:.4f}), bound {b_ms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, the rows "
+                    f"mostly from L2), chain {chain_ms:.4f} ms ({deg} adds x "
+                    f"{CSR_CHAIN_CYCLES} cycles at {mhz:.0f} MHz), plain {plain_ms:.4f} ms, "
+                    f"parent index_add_ {parent_ms:.4f} ms")
+                if d == CSR_WIDTHS[0]:
+                    out[name][call] = dict(shape=[n_rows, n_src, d, e], dtype="bfloat16" if bf16
+                                           else "float32", ms=ms, graph_ms=g_ms, bound_ms=b_ms,
+                                           bound_by=by, chain_ms=chain_ms, plain_ms=plain_ms,
+                                           library_ms=parent_ms)
+                del x, xin, xp, got, want, plain
+        del ds, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -7058,8 +7240,12 @@ def main(argv=None) -> int:
     mesh_s, k1_mesh, k2_mesh, mesh_launches = mesh_phases(args, device, fds, mesh_children)
     mesh_children.stop()
     say("mesh", f"phases 70-72's share of the run: {mesh_s:.1f} s")
-    catalog_s, sgl_micro_k2, k2_micro, k2_elec, _ = catalog_phases(args, device, catalog_child)
+    catalog_s, sgl_micro_k2, k2_micro, k2_elec, catalog_result = catalog_phases(args, device,
+                                                                               catalog_child)
     say("catalog", f"phases 73-79's share of the run: {catalog_s:.1f} s")
+    t_csr = time.perf_counter()
+    csr_times = csr_spmm_phases(args, device)
+    say("csr", f"phase 80's share of the run: {time.perf_counter() - t_csr:.1f} s")
     say("result", f"the whole run to here: {time.perf_counter() - t_run:.1f} s")
 
     # result -----------------------------------------------------------
@@ -7272,6 +7458,26 @@ def main(argv=None) -> int:
                     "note": f"{note}; q: 1024 unit rows over the temperature, k: n unit rows; "
                             "library: torch.mm and torch.logsumexp"
                             f"{'' if kernel == 'fwd' else ' and their autograd'}, timed together"})
+    # the segment graph's CSR gather-sum (phase 80), which replaces no TPU
+    # kernel: the library yardstick is the parent path it replaced; its
+    # launches as phases 73-77 counted them on the main path
+    csr_phases = {MICROLENS: (73, 74), ELECTRONICS: (76, 77)}
+    for cat, calls in csr_times.items():
+        launched = "; ".join(
+            f"{c['model']}'s CLI run {c['cli']} and its {c['steps']} profiled steps {c['step']} "
+            f"(phase {number}: {2 * c['sums']} a step, {c['sums']} a ranking pass or export)"
+            for number in csr_phases[cat] for c in [catalog_result["csr"][str(number)]])
+        for call, t in calls.items():
+            entries.append({
+                "name": f"csr_spmm@{cat}[{call}]", "route": "cuda",
+                "source": "chaorec_tpu_torch/csrc/csr_spmm.cu",
+                "replaces": "none (the segment graph's gather and deterministic index_add_)",
+                "launches": launched, **t,
+                "note": "bits equal to the parent path's; bound: each gathered row once an "
+                        "edge, the ids, weights and output, over 3.35 TB/s (the rows mostly "
+                        "come from L2); chain: the hottest row's dependent adds; library: "
+                        "the gather, product and index_add_ (index_put_ for bwd) under the "
+                        "deterministic mode"})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
